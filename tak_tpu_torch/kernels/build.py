@@ -1,0 +1,141 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each `csrc/<name>.cu` has a plain C interface and is compiled at first
+use by `nvcc` into its own shared library under `build/tak_tpu_torch/`
+(listed in `.gitignore`), then loaded with `ctypes`.  Pointers and the
+CUDA stream are passed as `c_void_p`; every C entry point returns
+`cudaGetLastError()` and `check()` raises when it is not 0.
+
+All sources are compiled in parallel (one `nvcc` per source, started
+together).  The library name carries a hash of its source, so an edited
+kernel is rebuilt and a stale library is never loaded.
+
+No fast-math: the tree kernels must reproduce the plain PyTorch version's
+float32 PUCT arithmetic bit for bit, so `-fmad=false` also keeps the
+compiler from contracting a multiply and an add into one rounding.
+
+Launch counters: each wrapper adds one to `LAUNCHES[<kernel name>]` where
+it launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "tak_tpu_torch"
+SOURCES = ("fused_step", "tree_wave")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: (library, argtypes); every one returns cudaGetLastError()
+SIGNATURES = {
+    # n, rows, 10 input state fields, 10 output fields, action, enabled,
+    # stream
+    "tak_fused_step": ("fused_step", [_I, _I] + [_P] * 23),
+    # B, M, K, A, V, recycle, base, init, valid, 22 tree fields,
+    # 6 pending fields, leaves, created, stream
+    "tak_backup_descend_wave": ("tree_wave", [_I] * 6 + [_F, _F, _I]
+                                + [_P] * 31),
+    "tak_expand_backup_wave": ("tree_wave", [_I] * 6 + [_F, _F, _I]
+                               + [_P] * 31),
+}
+
+LAUNCHES: collections.Counter = collections.Counter()
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, str] = {}
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=SOURCES, verbose: bool = False) -> float:
+    """Compile every library in `names` that is not built yet, all `nvcc`
+    processes at once.  Returns the wall seconds spent.  `verbose` adds
+    `-Xptxas -v` (registers, shared memory, spills) to BUILD_LOG."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu`, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        if not _lib_path(name).exists():
+            build(SOURCES)
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for entry, (owner, argtypes) in SIGNATURES.items():
+            if owner == name:
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {what} failed: cudaError {err}")
+
+
+def ptr(t) -> int:
+    """Device address of a tensor; the caller keeps the tensor alive."""
+    return t.data_ptr()
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
