@@ -7,8 +7,9 @@ CUDA stream are passed as `c_void_p`; every C entry point returns
 `cudaGetLastError()` and `check()` raises when it is not 0.
 
 All sources are compiled in parallel (one `nvcc` per source, started
-together).  The library name carries a hash of its source, so an edited
-kernel is rebuilt and a stale library is never loaded.
+together).  The library name carries a hash of its source and of the
+shared headers (`csrc/*.cuh`), so an edited kernel is rebuilt and a stale
+library is never loaded.
 
 No fast-math: the tree kernels must reproduce the plain PyTorch version's
 float32 PUCT arithmetic bit for bit, so `-fmad=false` also keeps the
@@ -32,7 +33,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "tak_tpu_torch"
-SOURCES = ("fused_step", "tree_wave")
+SOURCES = ("fused_step", "tree_wave", "tree_wave_hbm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -50,6 +51,11 @@ SIGNATURES = {
                                 + [_P] * 31),
     "tak_expand_backup_wave": ("tree_wave", [_I] * 6 + [_F, _F, _I]
                                + [_P] * 31),
+    # B, M, K, A, V, base, init, 19 tree fields, leaves, created, stream
+    "tak_descend_wave_hbm": ("tree_wave_hbm", [_I] * 5 + [_F, _F]
+                             + [_P] * 22),
+    # B, M, K, A, V, 15 tree fields, 6 pending fields, stream
+    "tak_expand_backup_wave_hbm": ("tree_wave_hbm", [_I] * 5 + [_P] * 22),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -75,6 +81,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,15 +1,26 @@
 """Batched MCTS with PUCT, virtual loss and wave evaluation.
 
-Counterpart of `tak_tpu/mcts/search.py` on its fused-kernel path (the
-`backend="pallas"` VMEM tier): every wave runs one merged backup+descend
-kernel, the fused leaf step, `observe` and the network, and the masked
-top-K; each chunk of waves ends with an expand+backup flush.  Search
-semantics follow `alpha-tak/src/search/mcts.rs` as the JAX package does:
+Counterpart of `tak_tpu/mcts/search.py` on its two fused-kernel paths,
+named as there (`SearchConfig.backend`):
+
+  * "pallas", the pool tier (`tree_kernels.py`): every wave runs one
+    merged backup+descend kernel, the fused leaf step, `observe` and the
+    network, and the masked top-K; each chunk of waves ends with an
+    expand+backup flush.  Supports node recycling.
+  * "pallas_hbm", the large-tree tier (`tree_kernels_hbm.py`, pools up to
+    140,000 nodes, no recycling; the single-game `Player`): every wave is
+    descend -> step/evaluate/top-K -> expand+backup, not pipelined.
+
+"auto" follows the reference's rule (search.py:254-259): the pool tier
+when the tree passes `fits_in_vmem`, else the large-tree tier when not
+recycling and the pool is within `MAX_HBM_NODES`.  Search semantics
+follow `alpha-tak/src/search/mcts.rs` as the JAX package does:
 C(N) = ln((1+N+500)/500) + 4, virtual visits counted as losses, last-max
 ties, terminal leaves backing up the anchored outcome.
 
-Not ported yet: the XLA staggered-descent path, Gumbel root selection,
-the `packed`/`packedq` top-K, `fused_leaf_legal` and the HBM tier.
+Not ported yet (ROADMAP.md): the XLA staggered-descent path
+(`backend="xla"`), Gumbel root selection, the `packed`/`packedq` top-K
+and `fused_leaf_legal`.
 """
 
 from __future__ import annotations
@@ -26,6 +37,12 @@ from .tree_kernels import (
     _last_argmax,
     backup_descend_wave,
     expand_backup_wave,
+    fits_in_vmem,
+)
+from .tree_kernels_hbm import (
+    descend_wave_hbm,
+    expand_backup_wave_hbm,
+    fits_hbm,
 )
 
 EXPLORATION_BASE = 500.0
@@ -40,6 +57,9 @@ class SearchConfig:
     node_budget: int | None = None  # tree capacity; default fits num_sims
     exploration_base: float = EXPLORATION_BASE
     exploration_init: float = EXPLORATION_INIT
+    # tree kernels: "auto" | "pallas" (pool tier) | "pallas_hbm" (large-tree
+    # tier); the reference's names, see the module docstring
+    backend: str = "auto"
     # node recycling: a create in a full pool evicts the coldest unpinned
     # childless node instead of degrading to a parent re-eval
     recycle: bool = False
@@ -113,6 +133,33 @@ class MCTS:
         self.engine = engine
         self.eval_fn = eval_fn
         self.config = config
+        self.tier = self._resolve_tier()
+
+    def _resolve_tier(self) -> str:
+        """"pool" or "hbm": which pair of tree kernels the waves run."""
+        cfg = self.config
+        if cfg.backend == "xla":
+            raise NotImplementedError(
+                "the XLA staggered-descent path is not ported (ROADMAP.md)")
+        if cfg.backend not in ("auto", "pallas", "pallas_hbm"):
+            raise ValueError(f"unknown search backend {cfg.backend!r}")
+        if cfg.recycle and cfg.backend == "pallas_hbm":
+            raise ValueError(
+                "node recycling runs on the pool tier only; the large-tree "
+                "tier does not support it")
+        if cfg.backend == "pallas":
+            return "pool"
+        if cfg.backend == "pallas_hbm":
+            return "hbm"
+        if fits_in_vmem(cfg.max_nodes, cfg.max_children,
+                        self.engine.num_actions):
+            return "pool"
+        if not cfg.recycle and fits_hbm(cfg.max_nodes):
+            return "hbm"
+        raise NotImplementedError(
+            f"a {cfg.max_nodes}-node tree with recycle={cfg.recycle} fits "
+            "neither tree-kernel tier; the reference falls back to its XLA "
+            "path, which is not ported (ROADMAP.md)")
 
     def init_batch(self, root_states: GameState) -> Tree:
         return init_tree(self.engine, root_states, self.config.max_nodes,
@@ -148,10 +195,11 @@ class MCTS:
 
     # -- waves ----------------------------------------------------------------
 
-    def _leaf_states_of(self, tree: Tree, leaves) -> GameState:
-        """Every leaf's state with one fused step: step(state[parent],
-        parent_action); a root leaf (index 0) rides the freeze path and
-        comes back as the root state.  Returns flat states [B*V]."""
+    def _leaf_step_inputs(self, tree: Tree, leaves):
+        """(parent states, actions, enabled), flat [B*V]: what one fused
+        step turns into the leaves' states.  A root leaf (index 0) is
+        disabled, so it rides the freeze path and comes back as the root
+        state."""
         B, V = leaves.shape
         b = torch.arange(B, device=leaves.device)[:, None]
         lv = leaves.long()
@@ -160,7 +208,12 @@ class MCTS:
         parents = tree.state.map(
             lambda x: x[b, p].reshape((B * V,) + tuple(x.shape[2:])))
         acts = torch.clamp(tree.parent_action[b, lv], min=0).reshape(-1)
-        return self.engine.step(parents, acts, (lv != 0).reshape(-1))
+        return parents, acts, (lv != 0).reshape(-1)
+
+    def _leaf_states_of(self, tree: Tree, leaves) -> GameState:
+        """Every leaf's state with one fused step: step(state[parent],
+        parent_action).  Returns flat states [B*V]."""
+        return self.engine.step(*self._leaf_step_inputs(tree, leaves))
 
     def _write_nodes(self, tree: Tree, leaves, created, flat_states: GameState,
                      leaf_results) -> None:
@@ -210,13 +263,29 @@ class MCTS:
                                               **self._kernel_args())
         return self._eval_and_topk(params, tree, leaves, created)
 
+    def _wave_hbm(self, params, tree: Tree) -> None:
+        """One large-tier wave: descend -> step/evaluate/top-K ->
+        expand+backup (`tak_tpu` search.py:860-876)."""
+        cfg = self.config
+        leaves, created = descend_wave_hbm(
+            tree, cfg.wave_size, base=float(cfg.exploration_base),
+            init=float(cfg.exploration_init))
+        expand_backup_wave_hbm(
+            tree, self._eval_and_topk(params, tree, leaves, created))
+
     @torch.no_grad()
     def run_sims(self, params, tree: Tree) -> Tree:
-        """Full search: `num_waves` pipelined waves, chunked by
-        `scan_chunk` (each chunk starts with nothing pending and ends with
-        the expand+backup flush, as `tak_tpu` search.py:956-994)."""
+        """Full search: `num_waves` waves.  On the pool tier they are
+        pipelined and chunked by `scan_chunk` (each chunk starts with
+        nothing pending and ends with the expand+backup flush, as
+        `tak_tpu` search.py:956-994); on the large-tree tier every wave is
+        whole in itself, so chunking changes nothing."""
         cfg = self.config
         total = cfg.num_waves
+        if self.tier == "hbm":
+            for _ in range(total):
+                self._wave_hbm(params, tree)
+            return tree
         chunk = total
         if cfg.scan_chunk:
             chunk = min(total, -(-cfg.scan_chunk // cfg.wave_size))

@@ -81,6 +81,25 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
+# The reference sends a search to this tier when the tree fits the TPU's
+# VMEM budget (pallas_ops.py:49-68).  The card has no such limit; the port
+# keeps the rule so that one SearchConfig reaches the counterpart kernels
+# in both packages.
+VMEM_BUDGET_BYTES = 5 * 1024 * 1024
+
+
+def tree_vmem_bytes(max_nodes: int, k: int, num_actions: int) -> int:
+    kp = _cdiv(k, LANES) * LANES
+    edge = 6 * max_nodes * kp * 4
+    root = 7 * _cdiv(num_actions, LANES) * LANES * 4
+    node = 5 * _cdiv(max_nodes, LANES) * LANES * 4
+    return edge + root + node
+
+
+def fits_in_vmem(max_nodes: int, k: int, num_actions: int) -> bool:
+    return tree_vmem_bytes(max_nodes, k, num_actions) <= VMEM_BUDGET_BYTES
+
+
 def _last_argmax(scores):
     """Index of the max along the last axis; ties -> LAST index."""
     K = scores.shape[-1]

@@ -6,6 +6,7 @@
   * `variables_from_numpy` — flax's nested numpy `{params, batch_stats}`
     dicts -> the port's unfolded `state_dict`.
   * `init_variables(seed)` — random weights from a seeded torch.Generator.
+  * `Network.load(path)` — a weights file written by the JAX package.
 
 Variables are `state_dict`s of the unfolded `TakResNet`; the folded copy
 is built once per variables object (by identity) and loaded into the
@@ -131,6 +132,13 @@ class Network:
 
     def init_variables(self, seed: int = 0) -> dict:
         return init_variables(self.config, seed)
+
+    def load(self, path: str) -> dict:
+        """Variables from a weights file written by the JAX package's
+        `Network.save` (`utils/checkpoint.py`)."""
+        from ..utils.checkpoint import load_variables
+
+        return load_variables(path, self.config)
 
     def _fold_bn(self, variables: dict) -> dict:
         return fold_bn(variables, self.config)
