@@ -9,7 +9,13 @@ Phases, each fatal on failure:
   3. hold each kernel against its plain PyTorch version on the card, at the
      main path's shapes, bitwise:
        * fused step on 8,192 rows of varied 6x6 positions (seeded random
-         playouts), with disabled rows and finished games;
+         playouts), with disabled rows and finished games; the fused step
+         with legal bits on the same rows, on 1,024 playout rows at 5x5 and
+         8x8, and (phase 5) on a Player wave's 64 leaf rows: states and
+         packed words, and the words unpacked against `Engine.legal_mask`;
+       * the legal sampler on those 8,192 rows and the env rollout at
+         8,192 rows x 64 steps, each with given random words and with a
+         seed (Philox written out in the kernel and in the plain version);
        * one backup+descend wave (valid=1), one descend wave (valid=0) and
          one expand+backup flush on 32 trees mid-search, with the 1280-node
          pool full so every create recycles a node;
@@ -39,6 +45,16 @@ Phases, each fatal on failure:
      `Game.play` steps);
   6. the entry points as subprocesses: a TEI dialogue over pipes and the
      analysis command line on a short PTN file;
+  6a. the self-play slice again with `fused_leaf_legal=True` for 2 searched
+     moves (same seed, weights and openings): the fused step with legal
+     bits launched, root counts and legal moves as in phase 4, and move
+     1's searched tree bitwise equal to phase 4's; then one searched move
+     with `topk_impl="packedq"`;
+  6b. the env rollout as a user drives it: `Engine.env_rollout_fn(64)` on
+     8,192 fresh 6x6 games, one warm-up launch and 8 timed launches (seeds
+     1..8) with one synchronization: env steps per second.  Checks: nothing
+     but the rollout kernel launched, every row ongoing, pieces conserved;
+     then the sampler kernel draws one action per final row, all legal;
   7. time each kernel (CUDA events) and its plain version at the main
      paths' shapes, with the least time the card could take (bound);
   8. print one `{"kernels": [...]}` line, then the `{"ok": true, ...}` line.
@@ -47,7 +63,8 @@ Phases, each fatal on failure:
      holds its times elsewhere, `launches_by_path` the count of each path.
 
 `--profile` adds, before the last two lines, where one self-play move's
-search and one Player wave spend their time (per-stage host timers, then
+search (with `fused_leaf_legal` off and on) and one Player wave spend their
+time (per-stage host timers, then
 torch.profiler device time).
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -58,6 +75,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -82,11 +100,20 @@ P_POOL = 131_072
 P_WAVES = 800                  # 51,200 rollouts per move, the ponder cap
 P_MOVES = 3
 
+# the env rollout path (the JAX package's bench.py:28-29,70-81)
+R_ENVS = 8192
+R_STEPS = 64
+R_LAUNCHES = 8
+FUSED_MOVES = 2                # searched moves with fused_leaf_legal=True
+
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_OPS_PER_S = 67e12          # H100 SXM, outside the tensor cores
 
 REPLACES = {
     "fused_step": "tak_tpu/engine/pallas_env.py:704",
+    "fused_step_legal": "tak_tpu/engine/pallas_env.py:836",
+    "legal_sampler": "tak_tpu/engine/pallas_env.py:927",
+    "env_rollout": "tak_tpu/engine/pallas_env.py:990",
     "backup_descend_wave": "tak_tpu/mcts/pallas_ops.py:1118",
     "descend_wave": "tak_tpu/mcts/pallas_ops.py:1284",
     "expand_backup_wave": "tak_tpu/mcts/pallas_ops.py:637",
@@ -95,8 +122,12 @@ REPLACES = {
 }
 POOL_TIER = ("backup_descend_wave", "descend_wave", "expand_backup_wave")
 HBM_TIER = ("descend_wave_hbm", "expand_backup_wave_hbm")
+PATHS = ("selfplay", "player", "fused_leaf_legal", "env_rollout")
 SOURCES = {
     "fused_step": "tak_tpu_torch/csrc/fused_step.cu",
+    "fused_step_legal": "tak_tpu_torch/csrc/fused_step_legal.cu",
+    "legal_sampler": "tak_tpu_torch/csrc/env_rollout.cu",
+    "env_rollout": "tak_tpu_torch/csrc/env_rollout.cu",
     "backup_descend_wave": "tak_tpu_torch/csrc/tree_wave.cu",
     "descend_wave": "tak_tpu_torch/csrc/tree_wave.cu",
     "expand_backup_wave": "tak_tpu_torch/csrc/tree_wave.cu",
@@ -352,8 +383,10 @@ def check_hbm_on_tree(mcts, params, tree, what, card, reps=3,
     The pool-tier kernels (recycling off) run on the same tree for
     comparison.  Returns {kernel: (ms, plain_ms, bound_ms, bound_by)}, the
     pool-tier times under "descend_wave"/"expand_backup_wave" and the fused
-    step's under "fused_step"."""
+    steps' under "fused_step" and "fused_step_legal" (the latter held on the
+    same leaf rows, states and packed words)."""
     from tak_tpu_torch.engine.fused_env import fused_step, step_plain
+    from tak_tpu_torch.engine.legal_bits import step_legal, step_legal_plain
     from tak_tpu_torch.mcts.tree_kernels import descend_wave, expand_backup_wave
     from tak_tpu_torch.mcts.tree_kernels_hbm import (
         descend_wave_hbm,
@@ -407,6 +440,8 @@ def check_hbm_on_tree(mcts, params, tree, what, card, reps=3,
     if stepped == 0:
         fail(f"fused_step ({what}): no leaf row was stepped")
     del got, want
+    check_step_legal(mcts.engine, parents, acts, live,
+                     f"the wave's {B * V} leaf rows, {what}")
 
     # expand + backup of that wave's leaves
     pending = mcts._eval_and_topk(params, after_descend, lk, ck)
@@ -457,6 +492,12 @@ def check_hbm_on_tree(mcts, params, tree, what, card, reps=3,
                            for _ in range(step_reps)], 1) / step_reps,
         cuda_ms(lambda _: step_plain(mcts.engine, parents, acts, live), 2),
         *bound(*fused_step_work(parents, B * V)))
+    out["fused_step_legal"] = (
+        cuda_ms(lambda _: [step_legal(mcts.engine, parents, acts, live)
+                           for _ in range(step_reps)], 1) / step_reps,
+        cuda_ms(lambda _: step_legal_plain(mcts.engine, parents, acts, live),
+                2),
+        *bound(*step_legal_work(mcts.engine, parents, B * V)))
     log(f"time large tier ({what}) on {card}: "
         + "; ".join(
             f"{n} {v[0]:.4f} ms"
@@ -731,10 +772,13 @@ def profile_search(mcts, params, root_states, card):
     patches = [(search_mod, "backup_descend_wave", "tree kernel (merged)"),
                (search_mod, "expand_backup_wave", "tree kernel (flush)"),
                (search_mod, "masked_topk", "masked top-K"),
+               (search_mod, "masked_topk_packed", "masked top-K (packed words)"),
                (mcts, "_leaf_states_of", "leaf gather + fused step"),
                (mcts, "eval_fn", "observe + network"),
                (mcts.engine, "legal_mask", "legal mask"),
                (mcts, "_write_nodes", "write nodes")]
+    what = ("one self-play move's search, fused_leaf_legal="
+            f"{mcts.config.fused_leaf_legal}")
     tree = mcts.prepare_root(params, mcts.init_batch(root_states))
     with timed_stages(patches) as stages:
         sync()
@@ -742,10 +786,9 @@ def profile_search(mcts, params, root_states, card):
         mcts.run_sims(params, tree)
         sync()
         wall = time.perf_counter() - t0
-    log_stages(stages, wall, "one self-play move's search", card)
+    log_stages(stages, wall, what, card)
     tree = mcts.prepare_root(params, mcts.init_batch(root_states))
-    device_profile(lambda: mcts.run_sims(params, tree),
-                   "one self-play move's search", card)
+    device_profile(lambda: mcts.run_sims(params, tree), what, card)
 
 
 def profile_player(player, card, waves=200):
@@ -788,17 +831,315 @@ def profile_player(player, card, waves=200):
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
 
 
+def state_bytes(state) -> int:
+    from tak_tpu_torch.types import FIELDS
+
+    return sum(getattr(state, f).numel() * getattr(state, f).element_size()
+               for f in FIELDS)
+
+
 def fused_step_work(state, rows: int):
     """(bytes, operations) of one fused step over `rows` rows: each state
     column read once and written once, plus the action and enabled
     inputs; per row the per-square decode and insert (~40 ops x n^2), and
     the result with the road flood fill (~12 ops x n^2 iterations x 2
     colors)."""
-    in_bytes = sum(getattr(state, f).numel() * getattr(state, f).element_size()
-                   for f in ("stacks", "heights", "tops", "to_move", "ply",
-                             "stones", "caps", "half_komi", "reversible",
-                             "result"))
-    return 2 * in_bytes + rows * (4 + 1), rows * (40 * N * N + 24 * N * N)
+    n2 = state.heights.shape[-1]
+    return 2 * state_bytes(state) + rows * (4 + 1), rows * (40 * n2 + 24 * n2)
+
+
+def legal_ops(engine) -> int:
+    """Integer operations of one row's packed legal bits: per square about
+    10 for the placements and ownership and 4 rays of up to n-1 squares at
+    about 4 each; about 6 per spread word (three table reads, AND, OR)."""
+    n, n2, wp = engine.n, engine.num_squares, engine.pattern_words
+    return n2 * (10 + 16 * (n - 1)) + 4 * wp * n2 * 6
+
+
+def sample_ops(engine) -> int:
+    """Integer operations of one row's sample: two passes (count, then
+    find) over the 3 placement groups and 4*wp word groups of n^2 squares,
+    about 8 operations per word with its popcount."""
+    n2, wp = engine.num_squares, engine.pattern_words
+    return 2 * (3 + 4 * wp) * n2 * 8
+
+
+def step_legal_work(engine, state, rows: int):
+    """The fused step's work plus the packed words written once (4 B per
+    place word, 4 B per spread word: 1,296 B per 6x6 row) and their
+    operations."""
+    nbytes, ops = fused_step_work(state, rows)
+    words = engine.num_squares * (1 + 4 * engine.pattern_words)
+    return nbytes + rows * words * 4, ops + rows * legal_ops(engine)
+
+
+def sampler_work(engine, state, rows: int, external: bool):
+    """The state read once, the given words (8 B per row) if any, action
+    and count written (8 B per row); the legal bits and the sample."""
+    nbytes = state_bytes(state) + rows * (8 + (8 if external else 0))
+    return nbytes, rows * (legal_ops(engine) + sample_ops(engine))
+
+
+def rollout_work(engine, state, rows: int, steps: int, external: bool):
+    """One read and one write of the state (plus the given words, 8 B per
+    row and step, if any) and `steps` times the per-step operations of a
+    row: legal bits, sample, step, result, and the generator's 10 rounds
+    of about 10 operations."""
+    n2 = engine.num_squares
+    nbytes = 2 * state_bytes(state) + (rows * steps * 8 if external else 0)
+    per_step = legal_ops(engine) + sample_ops(engine) + 64 * n2 + 100
+    return nbytes, rows * steps * per_step
+
+
+def same_tensors(got, want, what):
+    for i, (x, y) in enumerate(zip(got, want)):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            fail(f"{what}: output {i} is {x.dtype} {tuple(x.shape)}, the "
+                 f"plain version gives {y.dtype} {tuple(y.shape)}")
+        if not bool((x == y).all()):
+            fail(f"{what}: output {i} differs in {int((x != y).sum())} "
+                 "entries")
+
+
+def check_step_legal(engine, states, acts, enabled, what):
+    """Hold the fused step with legal bits against its plain version,
+    bitwise on the states and on the packed words, and the unpacked words
+    against the dense legal mask of the output states."""
+    from tak_tpu_torch.engine.legal_bits import (
+        step_legal,
+        step_legal_plain,
+        unpack_legal,
+    )
+
+    got, place, spread = step_legal(engine, states, acts, enabled)
+    want, wplace, wspread = step_legal_plain(engine, states, acts, enabled)
+    sync()
+    compare_states(got, want, f"fused_step_legal ({what})")
+    same_tensors((place, spread), (wplace, wspread),
+                 f"fused_step_legal words ({what})")
+    dense = engine.legal_mask(got)
+    if not bool((unpack_legal(engine, place, spread) == dense).all()):
+        fail(f"fused_step_legal ({what}): the unpacked words are not "
+             "Engine.legal_mask of the output states")
+    rows = acts.shape[0]
+    stepped = int((got.ply != states.ply).sum())
+    log(f"check fused_step_legal ({what}): {rows} rows, states and "
+        f"{place.shape[1] + spread[0].numel()} words per row bitwise equal, "
+        f"unpacked words equal the dense legal mask ({stepped} stepped, "
+        f"{rows - stepped} frozen, {int(dense.sum()) / rows:.1f} legal "
+        "actions per row)")
+
+
+def pieces(state):
+    """Per row: pieces on the board plus both colours' reserves."""
+    return state.heights.sum(-1) + state.stones.sum(-1) + state.caps.sum(-1)
+
+
+def check_rollout_kernels(engine, states, rng, card):
+    """Hold the legal sampler (on `states`) and the env rollout (R_ENVS
+    rows x R_STEPS steps, from `states`' first R_ENVS rows) against their
+    plain versions, bitwise, with given words and with a seed; time them.
+    Returns {kernel: (ms, plain_ms, bound_ms, bound_by)}."""
+    import numpy as np
+    import torch
+
+    from tak_tpu_torch.engine.env_rollout import (
+        env_rollout,
+        env_rollout_plain,
+        legal_sampler,
+        legal_sampler_plain,
+    )
+
+    dev = states.device
+    rows = states.ply.shape[0]
+
+    def words(shape):
+        return torch.as_tensor(
+            rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.int64),
+            device=dev)
+
+    out = {}
+    bits = words(rows)
+    for kw, how in ((dict(bits=bits), "given words"), (dict(seed=SEED + 7),
+                                                       "seeded")):
+        got = legal_sampler(engine, states, **kw)
+        want = legal_sampler_plain(engine, states, **kw)
+        sync()
+        same_tensors(got, want, f"legal_sampler ({how})")
+    legal = engine.legal_mask(states)
+    ok = legal[torch.arange(rows, device=dev), got[0].long()]
+    if not bool((ok | (got[1] == 0)).all()) \
+            or not bool((got[1] == legal.sum(1)).all()):
+        fail("legal_sampler: an illegal action or a wrong legal count")
+    reps = 20
+    out["legal_sampler"] = (
+        cuda_ms(lambda _: [legal_sampler(engine, states, seed=SEED + 7)
+                           for _ in range(reps)], 1) / reps,
+        cuda_ms(lambda _: legal_sampler_plain(engine, states, seed=SEED + 7),
+                2),
+        *bound(*sampler_work(engine, states, rows, False)))
+    log(f"check legal_sampler: {rows} rows bitwise equal with given words "
+        f"and seeded, every action legal, counts equal the dense mask's "
+        f"(mean {float(got[1].float().mean()):.1f} legal actions)")
+
+    start = states[:R_ENVS].map(lambda x: x.contiguous())
+    tbits = words((R_STEPS, R_ENVS))
+    t_plain = []
+    for kw, how in ((dict(bits=tbits), "given words"),
+                    (dict(seed=(SEED + 1) << 33 | 5), "seeded")):
+        got = env_rollout(engine, start, R_STEPS, **kw)
+        sync()
+        t0 = time.perf_counter()
+        want = env_rollout_plain(engine, start, R_STEPS, **kw)
+        sync()
+        t_plain.append(1e3 * (time.perf_counter() - t0))
+        compare_states(got, want, f"env_rollout ({how})")
+        if bool((got.result != 0).any()):
+            fail(f"env_rollout ({how}): a finished game was not reset")
+    restarted = int((got.ply < start.ply + R_STEPS).sum())
+    seeded = dict(seed=(SEED + 1) << 33 | 5)
+    out["env_rollout"] = (
+        cuda_ms(lambda _: env_rollout(engine, start, R_STEPS, **seeded), 5),
+        t_plain[1],
+        *bound(*rollout_work(engine, start, R_ENVS, R_STEPS, False)))
+    log(f"check env_rollout: {R_ENVS} rows x {R_STEPS} steps bitwise equal on "
+        f"every field with given words and seeded ({restarted} rows "
+        f"restarted a game; plain versions {t_plain[0]:.0f} / "
+        f"{t_plain[1]:.0f} ms) on {card}")
+    return out
+
+
+def env_rollout_phase(engine, dev, card):
+    """The env rollout as a user drives it (the JAX package's
+    bench.py:70-81): `Engine.env_rollout_fn(R_STEPS)` on R_ENVS fresh games
+    at half-komi 4, one warm-up launch, R_LAUNCHES timed launches with
+    seeds 1.., one synchronization.  Returns (launch counts, the result
+    line with the env steps per second)."""
+    import torch
+
+    from tak_tpu_torch.engine.env_rollout import legal_sampler
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.types import ONGOING
+
+    start = engine.initial_batch(R_ENVS, half_komi=4, device=dev)
+    rollout = engine.env_rollout_fn(R_STEPS)
+    sync()
+    kb.reset_launches()
+    states = rollout(start, 0)
+    sync()
+    t0 = time.perf_counter()
+    for i in range(R_LAUNCHES):
+        states = rollout(states, i + 1)
+    sync()
+    sec = time.perf_counter() - t0
+    if dict(kb.LAUNCHES) != {"env_rollout": R_LAUNCHES + 1}:
+        fail(f"env rollout path: launches {dict(kb.LAUNCHES)}, expected "
+             f"{R_LAUNCHES + 1} of env_rollout and nothing else")
+    if not bool((states.result == ONGOING).all()):
+        fail("env rollout path: a row is not ongoing after the rollout")
+    if not bool((pieces(states) == pieces(start)).all()):
+        fail("env rollout path: pieces were not conserved")
+    if not bool((states.half_komi == 4).all()):
+        fail("env rollout path: komi was not kept")
+    # one more draw per final row, by the sampler kernel: all legal
+    act, total = legal_sampler(engine, states, seed=SEED)
+    legal = engine.legal_mask(states)
+    sync()
+    if not (bool(legal[torch.arange(R_ENVS, device=dev), act.long()].all())
+            and bool((total == legal.sum(1)).all())):
+        fail("env rollout path: the sampler drew an illegal action")
+    launches = dict(kb.LAUNCHES)
+    rate = R_ENVS * R_STEPS * R_LAUNCHES / sec
+    line = (f"env rollout: {R_LAUNCHES} launches of {R_ENVS} games x "
+            f"{R_STEPS} steps in {sec * 1e3:.2f} ms, {rate:,.0f} env steps/s "
+            f"({sec * 1e3 / R_LAUNCHES:.3f} ms per launch); every row "
+            f"ongoing, pieces conserved, mean ply "
+            f"{float(states.ply.float().mean()):.1f}, "
+            f"{float(total.float().mean()):.1f} legal actions per row")
+    log(line + f"; launches {launches} on {card}")
+    return launches, line
+
+
+def selfplay_phase(engine, eval_fn, params, dev, card, what, moves,
+                   **search_options):
+    """The self-play slice at the reference config for `moves` searched
+    moves, `search_options` added to its SearchConfig.  Checks every
+    chosen action legal and every root's gain of exactly the searched
+    sims.  Returns (launch counts, per-move lines, sims/s over the moves
+    after the first (the only move's, if one), a clone of move 1's
+    searched tree)."""
+    import torch
+
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.types import ONGOING
+
+    actor = make_actor(engine, eval_fn, dev, moves, **search_options)
+    scfg = actor.search_config
+    per_move, first_tree = [], []
+    orig_run, orig_select = actor.mcts.run_sims, actor.mcts.select_moves
+
+    def run_sims(p, t):
+        before_n0 = t.n0.clone()
+        before_sum = t.root_n.sum(1)
+        out = orig_run(p, t)
+        gained = out.n0 - before_n0
+        visits = out.root_n.sum(1) - before_sum
+        want_sims = scfg.num_waves * scfg.wave_size
+        if not (bool((gained == want_sims).all())
+                and bool((visits == want_sims).all())):
+            fail(f"{what}: root visits did not grow by {want_sims}: n0 "
+                 f"{gained.tolist()} root_n {visits.tolist()}")
+        if not first_tree:
+            first_tree.append(out.clone())
+        return out
+
+    def select_moves(gen, t, exploit):
+        a = orig_select(gen, t, exploit)
+        roots = t.state[:, 0]
+        legal = engine.legal_mask(roots)
+        ok = legal[torch.arange(a.shape[0], device=dev), a.long()]
+        ongoing = roots.result == ONGOING
+        if not bool((ok | ~ongoing).all()):
+            fail(f"{what}: illegal action chosen: {a.tolist()}")
+        per_move.append(int(ongoing.sum()))
+        return a
+
+    actor.mcts.run_sims = run_sims
+    actor.mcts.select_moves = select_moves
+    sync()
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    examples = actor.run(params, seed=SEED, log=lambda m: log(f"  {m}"))
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(kb.LAUNCHES)
+    if len(actor.move_times) != moves:
+        fail(f"{what} searched {len(actor.move_times)} moves, expected "
+             f"{moves}")
+    move_lines = []
+    for i, ((sec, sims), games) in enumerate(zip(actor.move_times, per_move)):
+        move_lines.append(f"move {i + 1}: {sec:.3f} s, {GAMES} trees x "
+                          f"{sims} sims ({games} live games), "
+                          f"{GAMES * sims / sec:,.0f} sims/s")
+        log(f"{what}: " + move_lines[-1] + f" on {card}")
+    steady = actor.move_times[1:] or actor.move_times
+    rate = GAMES * sum(s for _, s in steady) / sum(t for t, _ in steady)
+    log(f"{what}: {moves} moves in {wall:.2f} s, {len(examples)} examples; "
+        f"{rate:,.0f} self-play sims/s over move"
+        f"{'s 2-' + str(moves) if moves > 2 else ' ' + str(moves)} on {card}")
+    log(f"launches in {what}: {launches}")
+    return launches, move_lines, rate, first_tree[0]
+
+
+def make_actor(engine, eval_fn, dev, moves, **search_options):
+    from tak_tpu_torch.mcts.search import SearchConfig
+    from tak_tpu_torch.selfplay import SelfPlayActor, SelfPlayConfig
+
+    cfg = SelfPlayConfig(
+        games=GAMES, workers=GAMES, max_plies=2 + moves,
+        search=SearchConfig(num_sims=SIMS, wave_size=WAVE, max_children=K,
+                            recycle=True, **search_options))
+    return SelfPlayActor(engine, eval_fn, cfg, device=dev)
 
 
 def main(do_profile: bool = False):
@@ -825,6 +1166,7 @@ def main(do_profile: bool = False):
 
     from tak_tpu_torch.engine.core import get_engine
     from tak_tpu_torch.engine.fused_env import fused_step, step_plain
+    from tak_tpu_torch.engine.legal_bits import step_legal, step_legal_plain
     from tak_tpu_torch.kernels import build as kb
     from tak_tpu_torch.mcts.search import MCTS, SearchConfig
     from tak_tpu_torch.mcts.tree_kernels import (
@@ -837,7 +1179,6 @@ def main(do_profile: bool = False):
     )
     from tak_tpu_torch.model.network import Network
     from tak_tpu_torch.model.resnet import NetConfig
-    from tak_tpu_torch.selfplay import SelfPlayActor, SelfPlayConfig
     from tak_tpu_torch.types import ONGOING
 
     # ---- 2. build --------------------------------------------------------
@@ -870,6 +1211,18 @@ def main(do_profile: bool = False):
     log(f"check fused_step: {ROWS} rows bitwise equal "
         f"({stepped} stepped, {ROWS - stepped} frozen) "
         f"in {time.perf_counter() - t0:.1f} s")
+    # the fused step with legal bits: the same rows, then other sizes (5x5:
+    # wp = 1; 8x8: wp = 8, four stack words, bit 63 of the road bitboard)
+    check_step_legal(engine, states, acts, enabled,
+                     f"{N}x{N}, one self-play wave's rows")
+    for size in (5, 8):
+        other = get_engine(size)
+        ost = playout_states(other, 1024, 60, rng, dev)
+        check_step_legal(
+            other, ost, random_legal(other, ost, rng),
+            torch.as_tensor(rng.random(1024) < 0.9, device=dev),
+            f"{size}x{size} playout rows")
+        del ost
 
     # the per-move instant-win scan: every (game, action) probe row of 32
     # mid-game roots, illegal pairs on the freeze path
@@ -895,11 +1248,7 @@ def main(do_profile: bool = False):
     def eval_fn(p, s):
         return net.policy_eval_states(p, s)
 
-    sp_cfg = SelfPlayConfig(
-        games=GAMES, workers=GAMES, max_plies=2 + MOVES,
-        search=SearchConfig(num_sims=SIMS, wave_size=WAVE, max_children=K,
-                            recycle=True))
-    actor = SelfPlayActor(engine, eval_fn, sp_cfg, device=dev)
+    actor = make_actor(engine, eval_fn, dev, MOVES)
     scfg = actor.search_config
     if scfg.max_nodes != POOL or scfg.scan_chunk != 512:
         fail(f"unexpected default search config {scfg}")
@@ -977,70 +1326,24 @@ def main(do_profile: bool = False):
                       "a 150-node pool that runs out inside the wave", card,
                       pool_runs_out=True)
 
+    # ---- 3d. the legal sampler and the env rollout --------------------------
+    rollout_times = check_rollout_kernels(engine, states, rng, card)
+
     # ---- 4. the self-play slice ------------------------------------------------
-    per_move = []
-    orig_run, orig_select = actor.mcts.run_sims, actor.mcts.select_moves
-
-    def run_sims(p, t):
-        before_n0 = t.n0.clone()
-        before_sum = t.root_n.sum(1)
-        out = orig_run(p, t)
-        gained = out.n0 - before_n0
-        visits = out.root_n.sum(1) - before_sum
-        want_sims = scfg.num_waves * scfg.wave_size
-        if not (bool((gained == want_sims).all())
-                and bool((visits == want_sims).all())):
-            fail(f"root visits did not grow by {want_sims}: n0 "
-                 f"{gained.tolist()} root_n {visits.tolist()}")
-        return out
-
-    def select_moves(gen, t, exploit):
-        a = orig_select(gen, t, exploit)
-        roots = t.state[:, 0]
-        legal = engine.legal_mask(roots)
-        ok = legal[torch.arange(a.shape[0], device=dev), a.long()]
-        ongoing = roots.result == ONGOING
-        if not bool((ok | ~ongoing).all()):
-            fail(f"illegal action chosen: {a.tolist()}")
-        per_move.append(int(ongoing.sum()))
-        return a
-
-    actor.mcts.run_sims = run_sims
-    actor.mcts.select_moves = select_moves
-    sync()
-    kb.reset_launches()
-    t0 = time.perf_counter()
-    examples = actor.run(params, seed=SEED, log=lambda m: log(f"  {m}"))
-    sync()
-    wall = time.perf_counter() - t0
-    launches = dict(kb.LAUNCHES)
-    moves = len(actor.move_times)
-    if moves != MOVES:
-        fail(f"the slice searched {moves} moves, expected {MOVES}")
-    move_lines = []
-    for i, ((sec, sims), games) in enumerate(zip(actor.move_times, per_move)):
-        move_lines.append(f"move {i + 1}: {sec:.3f} s, {GAMES} trees x "
-                          f"{sims} sims ({games} live games), "
-                          f"{GAMES * sims / sec:,.0f} sims/s")
-        log(move_lines[-1] + f" on {card}")
-    steady = actor.move_times[1:]
-    rate = GAMES * sum(s for _, s in steady) / sum(t for t, _ in steady)
-    log(f"slice: {moves} moves in {wall:.2f} s, {len(examples)} examples; "
-        f"moves 2-{moves}: {rate:,.0f} self-play sims/s on {card}")
-    log(f"launches in the slice: {launches}")
+    launches, move_lines, rate, tree_off = selfplay_phase(
+        engine, eval_fn, params, dev, card, "self-play slice", MOVES)
+    moves = MOVES
     for name in POOL_TIER + ("fused_step",):
         if launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the self-play path")
-    for name in HBM_TIER:
+    for name in HBM_TIER + ("fused_step_legal", "legal_sampler",
+                            "env_rollout"):
         if launches.get(name, 0) != 0:
-            fail(f"large-tier kernel {name} launched on the self-play path")
+            fail(f"kernel {name} launched on the self-play path")
 
     # ---- 5. the Player slice, 6. the entry points --------------------------
     p_launches, p_lines, p_rate, player, searched = player_phase(
         engine, eval_fn, params, dev, card)
-    by_path = {name: {"selfplay": launches.get(name, 0),
-                      "player": p_launches.get(name, 0)}
-               for name in REPLACES}
     # the kernels of the Player path again, at the shapes that path gave
     # them: move 1's searched tree (a 64-leaf wave) and a one-row step
     player_times = check_hbm_on_tree(
@@ -1049,6 +1352,41 @@ def main(do_profile: bool = False):
     one_row = check_single_step(engine, searched, card)
     del searched
     entry_points_phase(here, card)
+
+    # ---- 6a. the self-play slice with fused_leaf_legal, then packedq --------
+    f_launches, f_lines, f_rate, tree_on = selfplay_phase(
+        engine, eval_fn, params, dev, card,
+        "self-play with fused_leaf_legal", FUSED_MOVES, fused_leaf_legal=True)
+    if f_launches.get("fused_step_legal", 0) <= 0:
+        fail("fused_step_legal was not launched with fused_leaf_legal=True")
+    for name in POOL_TIER + ("fused_step",):   # the win scan still steps
+        if f_launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched with fused_leaf_legal=True")
+    compare_trees(tree_on, tree_off, "move 1's tree with fused_leaf_legal on "
+                  "against the option off")
+    log(f"check fused_leaf_legal: move 1's searched tree ({GAMES} games, "
+        f"{SIMS} sims each, root noise from the same seed) is bitwise the "
+        "tree of the option off, node states included")
+    del tree_on, tree_off
+    _, q_lines, q_rate, _ = selfplay_phase(
+        engine, eval_fn, params, dev, card, 'self-play with topk_impl="packedq"',
+        1, topk_impl="packedq")
+    options_line = (
+        f"self-play sims/s: {rate:,.0f} (exact top-K, dense legal mask; moves "
+        f"2-{MOVES}), {f_rate:,.0f} with fused_leaf_legal (move "
+        f"2 of {FUSED_MOVES}; {'; '.join(f_lines)}), {q_rate:,.0f} with "
+        f'topk_impl="packedq" (one move: {q_lines[0]})')
+    log(f"{options_line} on {card}")
+
+    # ---- 6b. the env rollout path ---------------------------------------------
+    r_launches, r_line = env_rollout_phase(engine, dev, card)
+    for name in ("env_rollout", "legal_sampler"):
+        if r_launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the env rollout path")
+    # each path was driven from counts of 0 (the packedq move is no path
+    # of its own: it launches what the self-play slice launches)
+    by_path = {name: dict(zip(PATHS, (c.get(name, 0) for c in (
+        launches, p_launches, f_launches, r_launches)))) for name in REPLACES}
 
     # ---- 7. timing ---------------------------------------------------------
     rows = []
@@ -1059,6 +1397,14 @@ def main(do_profile: bool = False):
     t_plain = cuda_ms(lambda _: step_plain(engine, st, acts, enabled), 3)
     t_bound, by = bound(*fused_step_work(st, ROWS))
     rows.append(("fused_step", t_kernel, t_plain, t_bound, by))
+
+    t_kernel = cuda_ms(lambda _: [step_legal(engine, st, acts, enabled)
+                                  for _ in range(reps)], 1) / reps
+    t_plain = cuda_ms(lambda _: step_legal_plain(engine, st, acts, enabled), 3)
+    t_bound, by = bound(*step_legal_work(engine, st, ROWS))
+    rows.append(("fused_step_legal", t_kernel, t_plain, t_bound, by))
+    for name in ("legal_sampler", "env_rollout"):
+        rows.append((name, *rollout_times[name]))
 
     t_wins = cuda_ms(lambda _: fused_step(engine, wst, wacts, wen), 5)
     t_wins_plain = cuda_ms(lambda _: step_plain(engine, wst, wacts, wen), 2)
@@ -1103,6 +1449,10 @@ def main(do_profile: bool = False):
 
     if do_profile:
         profile_search(mcts, params, roots, card)
+        profile_search(
+            MCTS(engine, eval_fn,
+                 dataclasses.replace(scfg, fused_leaf_legal=True)),
+            params, roots, card)
         profile_player(player, card)
 
     def times(t):
@@ -1115,21 +1465,22 @@ def main(do_profile: bool = False):
         "fused_step": {f"player wave, {P_WAVE} rows":
                        times(player_times["fused_step"]),
                        "one row": times(one_row)},
+        "fused_step_legal": {f"player wave, {P_WAVE} rows":
+                             times(player_times["fused_step_legal"])},
         **{name: {"check tree": times(hbm_times[name])} for name in HBM_TIER},
     }
     kernels = []
     for name, t_kernel, t_plain, t_bound, by in rows:
         paths = by_path[name]
         log(f"time {name}: kernel {t_kernel:.4f} ms, plain {t_plain:.3f} ms, "
-            f"bound {t_bound:.6f} ms ({by}); launches: {paths['selfplay']} on "
-            f"the self-play path, {paths['player']} on the Player path, "
+            f"bound {t_bound:.6f} ms ({by}); launches by path: {paths}, "
             f"on {card}")
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            # each path was driven from counts of 0; a kernel of both paths
-            # reports their sum, and the split beside it
-            "launches": paths["selfplay"] + paths["player"],
+            # each path was driven from counts of 0; a kernel of several
+            # paths reports their sum, and the split beside it
+            "launches": sum(paths.values()),
             "launches_by_path": paths,
             # every kernel was held bitwise against its plain version above
             # (any differing entry fails the run), so the error is 0
@@ -1144,6 +1495,7 @@ def main(do_profile: bool = False):
     log(f"summary on {card}: build {t_build:.1f} s; "
         + "; ".join(move_lines)
         + f"; moves 2-{moves}: {rate:,.0f} self-play sims/s; {wins_line}; "
+        + f"{options_line}; {r_line}; "
         + "; ".join(p_lines)
         + f"; Player: {p_rate:,.0f} rollouts/s over {P_MOVES} moves")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,12 @@
 """Batched PyTorch Tak rules engine (counterpart of `tak_tpu/engine/core.py`).
 
 Every function takes a batched `GameState` (leading axis B).  `step` is
-the fused step (`engine/fused_env.py`): the CUDA kernel on the card, its
-plain PyTorch version on the CPU.  `legal_mask`, `compute_result` and
-`roads` are plain tensor code, as the JAX package leaves them to XLA.
+the fused step (`engine/fused_env.py`), `step_legal` the fused step that
+also emits the packed legal bits (`engine/legal_bits.py`), and
+`env_rollout_fn` the whole random-playout loop in one kernel
+(`engine/env_rollout.py`): the CUDA kernels on the card, their plain
+PyTorch versions on the CPU.  `legal_mask`, `compute_result` and `roads`
+are plain tensor code, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from ..sizes import (
 )
 from ..types import CAP, FLAT, ONGOING, WALL, GameState, result_winner
 from ..utils.device import resolve_device
-from . import fused_env
+from . import env_rollout, fused_env, legal_bits
 
 
 class Engine:
@@ -46,7 +49,22 @@ class Engine:
         cum = np.concatenate(
             [np.zeros((P, 1), np.int64), np.cumsum(t.pat_drops, 1)[:, :-1]],
             axis=1)
+        wp, kmask, smask, smashm = legal_bits.pattern_class_tables(n)
+        self.pattern_words = wp          # u32 words per (square, direction)
         self._np_tables = {
+            # pattern class tables of the packed legal bits: u32 values in
+            # int64 for the plain version, and all three as one int32 array
+            # of bit patterns for the kernels
+            "kmask": kmask.astype(np.int64),                     # [n+1, wp]
+            "smask": smask.astype(np.int64),                     # [n, wp]
+            "smashm": smashm.astype(np.int64),                   # [n, wp]
+            "legal_tables": np.ascontiguousarray(np.concatenate(
+                [kmask, smask, smashm]).astype(np.uint32)).view(np.int32),
+            # pattern p of a spread word group: bit p % 32 of word p // 32
+            "pattern_word": np.arange(P, dtype=np.int64) // 32,  # [P]
+            "pattern_bit": (np.uint32(1) << (np.arange(P) % 32).astype(
+                np.uint32)).view(np.int32),                      # [P]
+            "place_bit": np.array([1, 2, 4], np.int32),
             "path_dist": dist,                                   # [n2, 4, n2]
             "pat_drops": t.pat_drops.astype(np.int64),           # [P, n-1]
             "pat_cum": cum,                                      # [P, n-1]
@@ -154,11 +172,32 @@ class Engine:
     def step(self, state: GameState, action, enabled=None) -> GameState:
         """Apply one (assumed legal) action per game; finished games and
         games with `enabled` False come back unchanged."""
-        action = action.to(device=state.device, dtype=torch.int32).contiguous()
-        if enabled is not None:
-            enabled = enabled.to(device=state.device,
-                                 dtype=torch.bool).contiguous()
-        return fused_env.fused_step(self, state, action, enabled)
+        return fused_env.fused_step(self, state,
+                                    *_step_args(state, action, enabled))
+
+    def step_legal(self, state: GameState, action, enabled=None):
+        """`step`, plus the packed legal bits of the state it returns:
+        (states, place [B, n2] int32, spread [B, 4, wp, n2] int32), the
+        words of `engine/legal_bits.py`, not a dense [B, A] mask.  One
+        kernel; counterpart of the JAX package's `fused_step_legal_fn`."""
+        return legal_bits.step_legal(self, state,
+                                     *_step_args(state, action, enabled))
+
+    def env_rollout_fn(self, num_steps: int, *, external_bits: bool = False):
+        """One-kernel (states, seed) -> states after `num_steps` uniform
+        random legal steps, finished games restarting from the initial
+        position with their komi (the whole env loop in one launch).  The
+        seed is an int, or a `torch.Generator` from which one is drawn.
+        With `external_bits` the second argument is an int64
+        [num_steps, B] tensor of u32 sampling words instead."""
+        def run(states: GameState, seed_or_bits):
+            if external_bits:
+                return env_rollout.env_rollout(self, states, num_steps,
+                                               bits=seed_or_bits)
+            return env_rollout.env_rollout(self, states, num_steps,
+                                           seed=seed_or_bits)
+
+        return run
 
     def wins_in_one(self, state: GameState) -> torch.Tensor:
         """Bool [B, A]: legal actions that win on the spot for the mover.
@@ -174,6 +213,16 @@ class Engine:
         stepped = self.step(rep, acts, legal.reshape(-1))
         winner = result_winner(stepped.result).reshape(B, A)
         return (winner == state.to_move[:, None]) & legal
+
+
+def _step_args(state: GameState, action, enabled):
+    """(action int32, enabled bool | None), contiguous on the state's
+    device, as the step kernels take them."""
+    action = action.to(device=state.device, dtype=torch.int32).contiguous()
+    if enabled is not None:
+        enabled = enabled.to(device=state.device,
+                             dtype=torch.bool).contiguous()
+    return action, enabled
 
 
 _ENGINES: dict[int, Engine] = {}

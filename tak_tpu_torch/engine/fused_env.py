@@ -250,7 +250,7 @@ def step_plain(engine, state: GameState, action, enabled=None) -> GameState:
     return where_state(done, state, new)
 
 
-def _check_state(engine, state: GameState, R: int):
+def check_state(engine, state: GameState, R: int, what: str = "fused_step"):
     n2, W = engine.num_squares, engine.words
     shapes = {"stacks": (R, n2, W), "heights": (R, n2), "tops": (R, n2),
               "stones": (R, 2), "caps": (R, 2)}
@@ -259,12 +259,28 @@ def _check_state(engine, state: GameState, R: int):
         want_shape = shapes.get(f, (R,))
         want_dtype = torch.int64 if f == "stacks" else torch.int32
         if tuple(x.shape) != want_shape or x.dtype != want_dtype:
-            raise ValueError(f"fused_step: field {f} is {x.dtype} "
+            raise ValueError(f"{what}: field {f} is {x.dtype} "
                              f"{tuple(x.shape)}, want {want_dtype} {want_shape}")
         if not x.is_contiguous():
-            raise ValueError(f"fused_step: field {f} is not contiguous")
+            raise ValueError(f"{what}: field {f} is not contiguous")
         if x.device != state.device:
-            raise ValueError(f"fused_step: field {f} on {x.device}")
+            raise ValueError(f"{what}: field {f} on {x.device}")
+
+
+def check_step_args(engine, state: GameState, action, enabled, what: str):
+    """Raise on what the step kernels do not take; returns `enabled` (all
+    rows when None)."""
+    R = action.shape[0]
+    check_state(engine, state, R, what)
+    if enabled is None:
+        enabled = torch.ones(R, dtype=torch.bool, device=state.device)
+    for name, x, dt in (("action", action, torch.int32),
+                        ("enabled", enabled, torch.bool)):
+        if (x.dtype != dt or tuple(x.shape) != (R,) or not x.is_contiguous()
+                or x.device != state.device):
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} "
+                             f"[{R}] tensor on {state.device}")
+    return enabled
 
 
 def fused_step(engine, state: GameState, action, enabled=None) -> GameState:
@@ -278,15 +294,7 @@ def fused_step(engine, state: GameState, action, enabled=None) -> GameState:
     if not 3 <= engine.n <= 8:
         raise ValueError(f"fused_step supports sizes 3-8, not {engine.n}")
     R = action.shape[0]
-    _check_state(engine, state, R)
-    if enabled is None:
-        enabled = torch.ones(R, dtype=torch.bool, device=state.device)
-    for name, x, dt in (("action", action, torch.int32),
-                        ("enabled", enabled, torch.bool)):
-        if (x.dtype != dt or tuple(x.shape) != (R,) or not x.is_contiguous()
-                or x.device != state.device):
-            raise ValueError(f"fused_step: {name} must be a contiguous {dt} "
-                             f"[{R}] tensor on {state.device}")
+    enabled = check_step_args(engine, state, action, enabled, "fused_step")
     out = state.map(torch.empty_like)
     if R == 0:
         return out

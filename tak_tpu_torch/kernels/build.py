@@ -33,18 +33,30 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "tak_tpu_torch"
-SOURCES = ("fused_step", "tree_wave", "tree_wave_hbm")
+SOURCES = ("fused_step", "fused_step_legal", "env_rollout", "tree_wave",
+           "tree_wave_hbm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U = ctypes.c_uint
 # C entry points: (library, argtypes); every one returns cudaGetLastError()
 SIGNATURES = {
     # n, rows, 10 input state fields, 10 output fields, action, enabled,
     # stream
     "tak_fused_step": ("fused_step", [_I, _I] + [_P] * 23),
+    # the same, then the class tables, place, spread, stream
+    "tak_fused_step_legal": ("fused_step_legal", [_I, _I] + [_P] * 26),
+    # n, rows, 10 state fields, tables, bits, use_seed, key low, key high,
+    # action, total, stream
+    "tak_legal_sampler": ("env_rollout", [_I, _I] + [_P] * 12 + [_I, _U, _U]
+                          + [_P] * 3),
+    # n, rows, steps, start stones, start caps, 10 input fields, 10 output
+    # fields, tables, bits, use_seed, key low, key high, stream
+    "tak_env_rollout": ("env_rollout", [_I] * 5 + [_P] * 22 + [_I, _U, _U]
+                        + [_P]),
     # B, M, K, A, V, recycle, base, init, valid, 22 tree fields,
     # 6 pending fields, leaves, created, stream
     "tak_backup_descend_wave": ("tree_wave", [_I] * 6 + [_F, _F, _I]

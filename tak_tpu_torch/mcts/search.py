@@ -18,9 +18,20 @@ follow `alpha-tak/src/search/mcts.rs` as the JAX package does:
 C(N) = ln((1+N+500)/500) + 4, virtual visits counted as losses, last-max
 ties, terminal leaves backing up the anchored outcome.
 
+Two options of the reference change how a wave's leaves get their legal
+moves and top-K priors, on both tiers:
+
+  * `fused_leaf_legal`: the leaf step is the fused step that also emits
+    the packed legal bits (`engine/legal_bits.py` `step_legal`), and the
+    top-K reads the words (`masked_topk_packed`) instead of a dense legal
+    mask.  The trees are identical either way.  The reference takes this
+    path only when B*V is a multiple of 128, a TPU lane rule; the port's
+    kernel has no such rule and applies at any row count.
+  * `topk_impl`: "exact", or the one-int32-key "packed" / "packedq" top-K
+    (`masked_topk`).
+
 Not ported yet (ROADMAP.md): the XLA staggered-descent path
-(`backend="xla"`), Gumbel root selection, the `packed`/`packedq` top-K
-and `fused_leaf_legal`.
+(`backend="xla"`) and Gumbel root selection.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..engine.legal_bits import masked_topk_packed
 from ..types import GameState
 from .tree import Tree, init_tree, root_visit_counts
 from .tree_kernels import (
@@ -60,6 +72,15 @@ class SearchConfig:
     # tree kernels: "auto" | "pallas" (pool tier) | "pallas_hbm" (large-tree
     # tier); the reference's names, see the module docstring
     backend: str = "auto"
+    # top-K child selection: "exact" | "packed" | "packedq" (see
+    # masked_topk).  The reference's "auto" is packedq on the TPU and exact
+    # on the CPU; the port's "auto" is "exact" on both devices: its default
+    # trees stay bitwise those of the exact top-K until a measurement on
+    # the card (PERF.md) argues for a change.
+    topk_impl: str = "auto"
+    # take the leaves' legal moves from the fused step as packed words and
+    # run the top-K on the words, instead of a dense legal mask per wave
+    fused_leaf_legal: bool = False
     # node recycling: a create in a full pool evicts the coldest unpinned
     # childless node instead of degrading to a parent re-eval
     recycle: bool = False
@@ -78,23 +99,58 @@ class SearchConfig:
         return self.node_budget or (self.num_waves * self.wave_size + 2)
 
 
-def masked_topk(policy, legal, k: int):
-    """(vals, action_ids) of the top-k legal policy entries per row, the
-    JAX package's impl="exact":
+def masked_topk(policy, legal, k: int, impl: str = "exact"):
+    """(vals, action_ids) of the top-k legal policy entries per row.
+
+    `policy` must be a softmax (entries in [0, 1]).  impl="exact" is
     `top_k(where(legal, policy, -1), k)` with ties to the LOWER index, as
-    `jax.lax.top_k`.  One int64 key per entry (order-preserving float bits
+    `jax.lax.top_k`: one int64 key per entry (order-preserving float bits
     above the reversed index) makes every key distinct, so the order is
-    deterministic.  Pad slots return -1 (and the lowest illegal ids)."""
-    masked = torch.where(legal, policy.float(), torch.full_like(policy, -1.0,
-                                                                dtype=torch.float32))
-    A = masked.shape[-1]
-    if A >= 1 << 20:
-        raise ValueError(f"action space {A} too wide for masked_topk")
-    bits = masked.contiguous().view(torch.int32)
-    key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).long()
-    rev_idx = (1 << 20) - 1 - torch.arange(A, device=masked.device)
-    top = torch.topk((key << 20) | rev_idx, k, dim=-1).indices
-    return masked.gather(-1, top), top.to(torch.int32)
+    deterministic; pad slots return -1 (and the lowest illegal ids).
+
+    impl="packed" / "packedq" pack a quantized prior and the action id into
+    ONE int32 key, `round(policy * (2^q - 1)) << idx_bits | id` with
+    q = min(17, 31 - idx_bits) bits (17 at 6x6), illegal entries INT32_MIN,
+    and run one integer top-k.  "packed" then gathers the exact float32
+    priors by id; "packedq" decodes the quantized priors from the keys.
+    Deviations from "exact": which action wins a tie below the quantum
+    (2^-17 at 6x6) at the K boundary, ties between equal quanta go to the
+    HIGHER id, and (packedq) priors carry an absolute error below 2^-17.
+    Pad slots return vals = -1, id 0.  Same values and ids as the JAX
+    package's function of the same name."""
+    if impl == "exact":
+        masked = torch.where(legal, policy.float(),
+                             torch.full_like(policy, -1.0,
+                                             dtype=torch.float32))
+        A = masked.shape[-1]
+        if A >= 1 << 20:
+            raise ValueError(f"action space {A} too wide for masked_topk")
+        bits = masked.contiguous().view(torch.int32)
+        key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).long()
+        rev_idx = (1 << 20) - 1 - torch.arange(A, device=masked.device)
+        top = torch.topk((key << 20) | rev_idx, k, dim=-1).indices
+        return masked.gather(-1, top), top.to(torch.int32)
+    if impl not in ("packed", "packedq"):
+        raise ValueError(f"unknown topk impl {impl!r}")
+    policy = policy.float()
+    A = policy.shape[-1]
+    idx_bits = max(1, (A - 1).bit_length())
+    q_bits = min(17, 31 - idx_bits)
+    if q_bits < 8:
+        raise ValueError(f"action space {A} too wide for packed topk")
+    scale = float((1 << q_bits) - 1)
+    q = torch.round(policy * scale).to(torch.int32)
+    iota = torch.arange(A, dtype=torch.int32, device=policy.device)
+    key = torch.where(legal, (q << idx_bits) | iota,
+                      torch.full_like(q, -(1 << 31)))
+    top = torch.topk(key, k, dim=-1).values
+    ok = top >= 0                       # legal keys are never negative
+    aidx = torch.where(ok, top & ((1 << idx_bits) - 1), torch.zeros_like(top))
+    if impl == "packedq":
+        vals = (top >> idx_bits).float() / scale
+    else:
+        vals = policy.gather(-1, aidx.long())
+    return torch.where(ok, vals, torch.full_like(vals, -1.0)), aidx
 
 
 def _gamma_fixed(gen, alpha: float, shape, device, iters: int = 4):
@@ -134,6 +190,10 @@ class MCTS:
         self.eval_fn = eval_fn
         self.config = config
         self.tier = self._resolve_tier()
+        if config.topk_impl not in ("auto", "exact", "packed", "packedq"):
+            raise ValueError(f"unknown topk_impl {config.topk_impl!r}")
+        self.topk_impl = ("exact" if config.topk_impl == "auto"
+                          else config.topk_impl)
 
     def _resolve_tier(self) -> str:
         """"pool" or "hbm": which pair of tree kernels the waves run."""
@@ -210,10 +270,15 @@ class MCTS:
         acts = torch.clamp(tree.parent_action[b, lv], min=0).reshape(-1)
         return parents, acts, (lv != 0).reshape(-1)
 
-    def _leaf_states_of(self, tree: Tree, leaves) -> GameState:
+    def _leaf_states_of(self, tree: Tree, leaves):
         """Every leaf's state with one fused step: step(state[parent],
-        parent_action).  Returns flat states [B*V]."""
-        return self.engine.step(*self._leaf_step_inputs(tree, leaves))
+        parent_action).  Returns (flat states [B*V], the leaves' packed
+        legal words (place, spread) with `fused_leaf_legal`, else None)."""
+        inputs = self._leaf_step_inputs(tree, leaves)
+        if self.config.fused_leaf_legal:
+            flat, place, spread = self.engine.step_legal(*inputs)
+            return flat, (place, spread)
+        return self.engine.step(*inputs), None
 
     def _write_nodes(self, tree: Tree, leaves, created, flat_states: GameState,
                      leaf_results) -> None:
@@ -234,11 +299,15 @@ class MCTS:
         what the next expand+backup consumes."""
         B, V = leaves.shape
         K = self.config.max_children
-        flat = self._leaf_states_of(tree, leaves)
+        flat, fused_legal = self._leaf_states_of(tree, leaves)
         policy, value = self.eval_fn(params, flat)
         leaf_results = flat.result.reshape(B, V)
-        legal = self.engine.legal_mask(flat)
-        vals, aidx = masked_topk(policy, legal, K)
+        if fused_legal is not None:
+            vals, aidx = masked_topk_packed(self.engine, policy, *fused_legal,
+                                            K)
+        else:
+            legal = self.engine.legal_mask(flat)
+            vals, aidx = masked_topk(policy, legal, K, self.topk_impl)
         self._write_nodes(tree, leaves, created, flat, leaf_results)
         return Pending(
             leaves=leaves.to(torch.int32).contiguous(),

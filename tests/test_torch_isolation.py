@@ -26,7 +26,8 @@ print("HAVE", ",".join(sorted(n for n in sys.modules
 
 NEW_MODULES = ("analysis", "errors", "game", "player", "engine.tps",
                "engine.ptn", "mcts.tree_kernels_hbm", "utils.checkpoint",
-               "cli.analysis_cli", "cli.tei")
+               "cli.analysis_cli", "cli.tei", "engine.legal_bits",
+               "engine.env_rollout")
 
 
 def test_port_imports_no_jax_or_tak_tpu():

@@ -11,6 +11,7 @@ must match bit for bit.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from tak_tpu.engine.core import get_engine as jax_engine
@@ -131,23 +132,32 @@ def test_tree_waves_vs_pallas_interpret():
 
 
 def run_both(n, moves, num_sims, wave_size, k, budget, batch=2,
-             scan_chunk=None):
+             scan_chunk=None, backend="pallas", **options):
+    """The same search in both packages; `options` (`fused_leaf_legal`,
+    `topk_impl`) go to both configs.  The pool tier recycles."""
     engine = jax_engine(n)
     jax_eval, torch_eval = exact_eval_pair(engine.num_actions)
-    jcfg = JaxSearchConfig(num_sims=num_sims, wave_size=wave_size,
-                           max_children=k, node_budget=budget, recycle=True,
-                           backend="pallas", scan_chunk=scan_chunk)
-    jm = JaxMCTS(engine, jax_eval, jcfg)
+    common = dict(num_sims=num_sims, wave_size=wave_size, max_children=k,
+                  node_budget=budget, recycle=backend == "pallas",
+                  backend=backend, scan_chunk=scan_chunk, **options)
+    jm = JaxMCTS(engine, jax_eval, JaxSearchConfig(**common))
     states = start_states(n, moves, batch)
     jt = jm.run_sims(None, jm.prepare_root(None, jm.init_batch(states)))
+    if options.get("fused_leaf_legal"):
+        # the reference takes its fused leaf step only at B*V % 128 == 0
+        assert jm._leaf_step_emits_legal and (batch * wave_size) % 128 == 0
 
-    tcfg = SearchConfig(num_sims=num_sims, wave_size=wave_size,
-                        max_children=k, node_budget=budget, recycle=True,
-                        scan_chunk=scan_chunk)
-    tm = MCTS(Engine(n), torch_eval, tcfg)
+    tm = MCTS(Engine(n), torch_eval, SearchConfig(**common))
     tt = tm.init_batch(GameState.from_numpy(states))
     tt = tm.run_sims(None, tm.prepare_root(None, tt))
     return jt, tt
+
+
+def assert_node_states_equal(jt, tt, msg=""):
+    got = tt.state.to_numpy()
+    for f in FIELDS:
+        np.testing.assert_array_equal(got[f], np.asarray(getattr(jt.state, f)),
+                                      err_msg=f"{msg} state.{f}")
 
 
 def test_run_sims_wave1_bitwise():
@@ -156,10 +166,7 @@ def test_run_sims_wave1_bitwise():
     jt, tt = run_both(3, ["a3", "c3", "c2"], num_sims=48, wave_size=1, k=16,
                       budget=20, scan_chunk=24)
     assert_trees_equal(jt, tt, "wave1")
-    got = tt.state.to_numpy()
-    for f in FIELDS:
-        np.testing.assert_array_equal(got[f], np.asarray(getattr(jt.state, f)),
-                                      err_msg=f"state.{f}")
+    assert_node_states_equal(jt, tt)
 
 
 def test_run_sims_wave4_root_stats():
@@ -204,3 +211,56 @@ def test_reroot_matches_jax():
                 err_msg=f"keep={keep} state.{f}")
         if keep is not None:
             assert (got.next_free.numpy() <= keep).all()
+
+
+FUSED_CASES = {
+    # 2 games x 64 leaves = 128 rows per wave; the 96-node pool is full
+    # after the first wave, so the later ones recycle
+    "pool": dict(n=4, moves=["a4", "d4", "b2"], num_sims=256, wave_size=64,
+                 k=8, budget=96, backend="pallas"),
+    "hbm": dict(n=4, moves=["a4", "d4", "b2"], num_sims=128, wave_size=64,
+                k=16, budget=None, backend="pallas_hbm"),
+}
+
+
+@pytest.mark.parametrize("tier", list(FUSED_CASES))
+def test_fused_leaf_legal_trees_bitwise(tier):
+    """With `fused_leaf_legal=True` on both sides the whole tree, node
+    states included, equals the JAX package's bit for bit, on both tiers;
+    and it equals the port's own tree with the option off."""
+    case = FUSED_CASES[tier]
+    jt, tt = run_both(**case, fused_leaf_legal=True)
+    assert_trees_equal(jt, tt, f"fused {tier}")
+    assert_node_states_equal(jt, tt, f"fused {tier}")
+    assert (tt.n0.numpy() == case["num_sims"] + 1).all()
+    if tier == "pool":
+        assert (tt.next_free.numpy() == case["budget"]).all()
+
+    _, torch_eval = exact_eval_pair(Engine(case["n"]).num_actions)
+    cfg = SearchConfig(
+        num_sims=case["num_sims"], wave_size=case["wave_size"],
+        max_children=case["k"], node_budget=case["budget"],
+        recycle=tier == "pool", backend=case["backend"])
+    assert not cfg.fused_leaf_legal
+    tm = MCTS(Engine(case["n"]), torch_eval, cfg)
+    off = tm.init_batch(GameState.from_numpy(
+        start_states(case["n"], case["moves"], 2)))
+    off = tm.run_sims(None, tm.prepare_root(None, off))
+    want, got = off.to_numpy(), tt.to_numpy()
+    for f in TENSOR_FIELDS:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f"off/on {f}")
+    for f in FIELDS:
+        assert torch.equal(getattr(off.state, f), getattr(tt.state, f)), f
+
+
+@pytest.mark.parametrize("impl", ["packed", "packedq"])
+def test_packed_topk_trees(impl):
+    """With the one-key top-K on both sides the trees agree on every
+    field: both packages quantize, select and decode the same integers, so
+    the priors too are equal bit for bit (tolerance 0; the fake network's
+    repeating priors make many equal quanta, which both resolve to the
+    higher id)."""
+    jt, tt = run_both(4, ["a4", "d4", "b2"], num_sims=32, wave_size=4, k=8,
+                      budget=16, topk_impl=impl)
+    assert_trees_equal(jt, tt, impl)
+    assert_node_states_equal(jt, tt, impl)
