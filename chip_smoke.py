@@ -24,7 +24,11 @@ Phases, each fatal on failure:
          on a tree of several thousand nodes grown by the plain versions,
          again on 8 deep trees, and on a small pool that runs out inside
          the wave; the pool-tier kernels run on the same trees with
-         recycling off, for comparison;
+         recycling off, for comparison; then on the hand-built trees of
+         `tak_tpu_torch.mcts.tree_cases` (a 40-edge prefix shared by all
+         leaves, every leaf twice, one leaf 64 times, a chain deeper than
+         the backup kernel's path buffer, a wave of root creates, a pool
+         that fills up, a path through an unexpanded node) at K=128 and K=32;
   4. the self-play slice: SelfPlayActor at 6x6, 32 lockstep games, 10,240
      sims per move, wave 256, K=32, recycling in the default 1280-node
      pool, tree reuse (reroot_keep unset, as bench.py leaves it),
@@ -56,7 +60,11 @@ Phases, each fatal on failure:
      but the rollout kernel launched, every row ongoing, pieces conserved;
      then the sampler kernel draws one action per final row, all legal;
   7. time each kernel (CUDA events) and its plain version at the main
-     paths' shapes, with the least time the card could take (bound);
+     paths' shapes, with the least time the card could take (bound); for
+     the large-tree waves also the chain floor: a one-thread pointer chase
+     along the wave's own paths (down through `edge_child` for the descend
+     kernel, up through `parent` for the backup kernel), since descents
+     that see each other's marks cannot approach a throughput bound;
   8. print one `{"kernels": [...]}` line, then the `{"ok": true, ...}` line.
      A kernel's `ms`, `plain_ms` and `bound_ms` are those of its main-path
      shape (the large-tree waves: the Player's own tree); `other_shapes`
@@ -157,7 +165,10 @@ def card_line() -> str:
 
 def cuda_ms(fn, reps: int, setup=None) -> float:
     """Mean device milliseconds of fn(setup()) over `reps` runs (CUDA
-    events around each launch; `setup` runs outside the timed span)."""
+    events around each launch; `setup` runs outside the timed span).  The
+    card spins for about half a millisecond ahead of the first event, so
+    that the host has queued the launch before the card reaches it: the
+    span holds the kernel and not the host's way to the launch."""
     import torch
 
     total = 0.0
@@ -166,6 +177,7 @@ def cuda_ms(fn, reps: int, setup=None) -> float:
         sync()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
         start.record()
         fn(arg)
         end.record()
@@ -384,7 +396,8 @@ def check_hbm_on_tree(mcts, params, tree, what, card, reps=3,
     comparison.  Returns {kernel: (ms, plain_ms, bound_ms, bound_by)}, the
     pool-tier times under "descend_wave"/"expand_backup_wave" and the fused
     steps' under "fused_step" and "fused_step_legal" (the latter held on the
-    same leaf rows, states and packed words)."""
+    same leaf rows, states and packed words), and under "chain_floor_ms"
+    the chain floors of the two large-tier kernels (`chain_floor`)."""
     from tak_tpu_torch.engine.fused_env import fused_step, step_plain
     from tak_tpu_torch.engine.legal_bits import step_legal, step_legal_plain
     from tak_tpu_torch.mcts.tree_kernels import descend_wave, expand_backup_wave
@@ -498,13 +511,116 @@ def check_hbm_on_tree(mcts, params, tree, what, card, reps=3,
         cuda_ms(lambda _: step_legal_plain(mcts.engine, parents, acts, live),
                 2),
         *bound(*step_legal_work(mcts.engine, parents, B * V)))
+    floors, chase = chain_floor(after_descend, lk, V)
     log(f"time large tier ({what}) on {card}: "
         + "; ".join(
             f"{n} {v[0]:.4f} ms"
-            + (f" (plain {v[1]:.3f} ms, bound {v[2]:.6f} ms by {v[3]})"
+            + (f" (plain {v[1]:.3f} ms, bound {v[2]:.6f} ms by {v[3]}"
+               + (f", chain floor {floors[n]:.4f} ms" if n in floors else "")
+               + ")"
                if v[1] is not None else " (pool-tier kernel, recycling off)")
-            for n, v in out.items()))
+            for n, v in out.items()) + f"; {chase}")
+    out["chain_floor_ms"] = floors
     return out
+
+
+def chain_floor(tree, leaves, V, reps=5):
+    """The dependent-load chains of the wave that ended in `leaves` on
+    `tree` (after its descend), each followed by one thread per game.
+    Descend: all V paths in sequence, downwards through `edge_child`: the
+    chase's own time.  Expand+backup: the deepest single path plus V
+    ordered adds, times the round trip of the chase up through `parent`.
+    Returns ({kernel: ms}, a description)."""
+    from tak_tpu_torch.mcts.tree_kernels_hbm import (
+        child_chase,
+        parent_chase,
+        wave_paths,
+    )
+
+    actions, slots = wave_paths(tree, leaves)
+    if not bool((child_chase(tree, actions, slots) == leaves).all()):
+        fail("child_chase did not end in the wave's leaves")
+    depth = (actions != -1).int() + (slots != -1).sum(-1).int()   # [B, V]
+    up_levels = parent_chase(tree, leaves)
+    if not bool((up_levels == (depth + 1).sum(1)).all()):
+        fail("parent_chase counted other levels than the paths hold")
+    down_ms = cuda_ms(lambda _: child_chase(tree, actions, slots), reps)
+    up_ms = cuda_ms(lambda _: parent_chase(tree, leaves), reps)
+    down_levels = int(depth.sum(1).max())
+    up_rt = up_ms / int(up_levels.max())
+    deepest = int(depth.max()) + 1
+    floors = {"descend_wave_hbm": down_ms,
+              "expand_backup_wave_hbm": (deepest + V) * up_rt}
+    text = (f"chase down edge_child {down_ms:.4f} ms over {down_levels} "
+            f"levels ({1e3 * down_ms / max(down_levels, 1):.3f} us each), "
+            f"chase up parent {up_ms:.4f} ms over {int(up_levels.max())} "
+            f"levels ({1e3 * up_rt:.3f} us each), deepest path {deepest}")
+    return floors, text
+
+
+def check_hbm_cases(engine, dev, card, V=P_WAVE):
+    """Hold the large-tier kernels against their plain versions, bitwise,
+    on the hand-built trees of `tree_cases` (two games each, the Player's
+    wave and action space, K=128 and three of them at K=32): one descend
+    wave, then one expand+backup wave on a seeded evaluation of its leaves;
+    and once more with a node of the shared prefix marked unexpanded before
+    the backup, so that a path passes through an unexpanded node."""
+    import torch
+
+    from tak_tpu_torch.mcts import tree_cases
+    from tak_tpu_torch.mcts.search import SearchConfig
+    from tak_tpu_torch.mcts.tree import init_tree
+    from tak_tpu_torch.mcts.tree_kernels import Pending
+    from tak_tpu_torch.mcts.tree_kernels_hbm import (
+        descend_wave_hbm,
+        descend_wave_hbm_plain,
+        expand_backup_wave_hbm,
+        expand_backup_wave_hbm_plain,
+    )
+
+    t0 = time.perf_counter()
+    cfg = SearchConfig()
+    kargs = dict(base=float(cfg.exploration_base),
+                 init=float(cfg.exploration_init))
+    B, A = 2, engine.num_actions
+    M = tree_cases.nodes_needed(V) + 8
+    roots = engine.initial_batch(B, 4, dev)
+    seen = []
+    for Kk, cases in ((P_K, (*tree_cases.CASES, "unexpanded_on_path")),
+                      (32, ("dups_twice", "deep_chain", "pool_full"))):
+        for case in cases:
+            name = "shared_prefix" if case == "unexpanded_on_path" else case
+            what = f"hand-built tree {case}, K={Kk}"
+            tree = init_tree(engine, roots, M, Kk)
+            for f, a in tree_cases.hand_tree(name, B, M, Kk, A, V,
+                                             SEED).items():
+                getattr(tree, f).copy_(torch.as_tensor(a))
+            tk, tp = tree.clone(), tree.clone()
+            lk, ck = descend_wave_hbm(tk, V, **kargs)
+            lp, cp = descend_wave_hbm_plain(tp, V, **kargs)
+            sync()
+            compare_trees(tk, tp, f"descend_wave_hbm ({what})")
+            if not (bool((lk == lp).all()) and bool((ck == cp).all())):
+                fail(f"descend_wave_hbm ({what}): leaves/created differ")
+            repeats = max(int(torch.bincount(row).max()) for row in lk.long())
+            depth = int((tk.edge_virt - tree.edge_virt).sum()) / (B * V)
+            if case == "unexpanded_on_path":
+                for t in (tk, tp):
+                    t.expanded[:, 20] = False
+            pending = Pending(
+                **{f: torch.as_tensor(a, device=dev) for f, a in
+                   tree_cases.hand_pending(lk.cpu().numpy(), Kk, A,
+                                           SEED + 1).items()}, valid=1)
+            expand_backup_wave_hbm(tk, pending)
+            expand_backup_wave_hbm_plain(tp, pending)
+            sync()
+            compare_trees(tk, tp, f"expand_backup_wave_hbm ({what})")
+            seen.append(f"{case} K={Kk}: depth {depth:.1f}, a leaf up to "
+                        f"{repeats} times, {int(ck.sum())} created, "
+                        f"{int((lk == 0).sum())} root leaves")
+    log(f"check large tier on hand-built trees (B={B} V={V} A={A} M={M}): "
+        f"descend and expand+backup bitwise equal to the plain versions on "
+        + "; ".join(seen) + f" in {time.perf_counter() - t0:.1f} s on {card}")
 
 
 def player_phase(engine, eval_fn, params, dev, card):
@@ -1311,7 +1427,7 @@ def main(do_profile: bool = False):
     p_cfg = SearchConfig(num_sims=P_WAVE, wave_size=P_WAVE,
                          max_children=P_K, node_budget=P_POOL)
     one_root = roots[:1].map(lambda x: x.contiguous())
-    hbm_times = check_hbm_kernels(
+    hbm_check = check_hbm_kernels(
         MCTS(engine, eval_fn, p_cfg), params, one_root, 60,
         "the Player's shape: one game, Net6", card)
     peaked = peaked_eval(engine.num_actions)
@@ -1325,6 +1441,7 @@ def main(do_profile: bool = False):
                       roots[:2].map(lambda x: x.contiguous()), 3,
                       "a 150-node pool that runs out inside the wave", card,
                       pool_runs_out=True)
+    check_hbm_cases(engine, dev, card)
 
     # ---- 3d. the legal sampler and the env rollout --------------------------
     rollout_times = check_rollout_kernels(engine, states, rng, card)
@@ -1437,7 +1554,7 @@ def main(do_profile: bool = False):
     for name in HBM_TIER:
         rows.append((name, *player_times[name]))
     for what, times in (("the Player's own tree", player_times),
-                        ("one game, check tree", hbm_times),
+                        ("one game, check tree", hbm_check),
                         ("8 games", hbm_times_8)):
         log(f"comparison at V={P_WAVE} K={P_K} M={P_POOL}, {what}, on {card}: "
             f"descend_wave_hbm {times['descend_wave_hbm'][0]:.4f} ms vs the "
@@ -1458,6 +1575,10 @@ def main(do_profile: bool = False):
     def times(t):
         return dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), t))
 
+    def hbm_times(measured, name):
+        return {**times(measured[name]),
+                "chain_floor_ms": measured["chain_floor_ms"][name]}
+
     # a kernel's times at its other shapes, beside the headline ones: the
     # large-tier waves on the check tree grown by the plain versions, the
     # fused step on the Player path's 64 leaf rows and on one row
@@ -1467,7 +1588,8 @@ def main(do_profile: bool = False):
                        "one row": times(one_row)},
         "fused_step_legal": {f"player wave, {P_WAVE} rows":
                              times(player_times["fused_step_legal"])},
-        **{name: {"check tree": times(hbm_times[name])} for name in HBM_TIER},
+        **{name: {"check tree": hbm_times(hbm_check, name)}
+           for name in HBM_TIER},
     }
     kernels = []
     for name, t_kernel, t_plain, t_bound, by in rows:
@@ -1488,6 +1610,10 @@ def main(do_profile: bool = False):
             "ms": t_kernel, "plain_ms": t_plain, "bound_ms": t_bound,
             "bound_by": by, "library_ms": None,
         }
+        if name in HBM_TIER:
+            # sequential by definition: the pointer chase along this wave's
+            # own paths, beside the throughput bound
+            entry["chain_floor_ms"] = player_times["chain_floor_ms"][name]
         if name in other_shapes:
             entry["other_shapes"] = other_shapes[name]
         kernels.append(entry)

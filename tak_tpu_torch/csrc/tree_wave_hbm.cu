@@ -10,25 +10,76 @@
 // The TPU kernels fetch six edge rows per tree level by DMA, keep a 512-row
 // cache in VMEM and write rows back synchronously, because VMEM cannot hold
 // the edge tier.  Here the whole tree lives in global memory and the L2
-// caches what a walk touches, so none of that exists: a level is six
-// coalesced row loads (the pick needs five; edge_child rides along so that
-// the chosen slot's child needs no dependent second read).  The recycling fields (node_n, node_virt, child_count)
-// are not arguments of these kernels.
+// caches what a walk touches, so none of that exists.  The recycling fields
+// (node_n, node_virt, child_count) are not arguments of these kernels.
 //
-// Layout: one thread block per game (the single-game Player launches one
-// block).  Descents within a game are sequential by definition.
-//   descend: all 1024 threads score the A root actions and reduce to the
-//     last maximum; warp 0 walks, each lane scoring K/32 slots of the row
-//     (4 at K=128) and carrying the slot's child, action and visit total
-//     through the warp argmax, so a level costs one round of loads; lane 0
-//     makes every scalar update, and __syncwarp()/__syncthreads() order its
-//     writes before the next reads.
-//   expand+backup: the block installs a new leaf's row (one slot per thread
-//     and array), then thread 0 walks to the root.  The float adds into
-//     edge_w/root_w keep the leaf order v = 0..V-1.
+// What bounds them on an H100: latency, not bytes or operations.  Descents
+// within a game see each other's virtual marks, so they are sequential by
+// definition, and each is a chain of dependent steps: per tree level one
+// round trip to the L2 for the node's edge rows, then the scores, then the
+// choice, and nothing of the next level can start before.  The launch
+// occupies one SM per game.  Measured with clock64() stamps on the Player's
+// tree (one game, V=64, K=128, A=9,036, 51,201 nodes, mean depth 27) in the
+// first layout (1,024 threads score all A root actions from global memory,
+// then warp 0 walks alone, 4 slots per lane): 4.05 ms = 64 root passes of
+// 3.45 us + 1,721 levels of 2.21 us.  A level was four round trips (the
+// slot loop stayed rolled, so each slot waited for its own loads), some 350
+// dependent instructions of one warp (c_puct's logf and division, sqrtf,
+// eight IEEE divisions per lane), ten shuffles and lane 0's
+// read-modify-write.  The backup kernel's thread 0 walked 64 x 27 levels of
+// two dependent loads and three read-modify-writes, 0.46 ms.  In this layout
+// (same tree, same card): descend 1.08 ms, a level 0.62 us (loads and score
+// 0.37, the four warps' agreement 0.22, the mark 0.06), expand+backup 0.056
+// ms.  What it does about each part:
 //
-// What bounds them: latency.  A descent is a chain of dependent loads (one
-// per level) behind a block-wide reduction, and the launch occupies one SM.
+//   descend, the root pick.  Between two descents only the marked entry and
+//     the scalar n0 + virt0 change, and few of the A actions are legal (104
+//     of 9,036 on that tree).  The legal actions are staged once per launch
+//     in shared memory, in ascending order (a block-wide prefix sum), as q,
+//     prior and the denominator 1 + n + virt; a pick scores those with the
+//     plain version's expression for u and keeps the last maximum, which in
+//     ascending order is the plain version's tie rule.  The mark rewrites
+//     the entry's q and denominator beside the global root_virt.  If more
+//     actions are legal than the shared memory holds (`cap`, from the
+//     host), the scorers read the five global arrays instead.
+//   descend, overlap.  Warps 0-3 walk; warps 4-15 score.  Pick v+1 needs
+//     only the root tier after mark v, which warp 0 applies before walk v
+//     starts, so the scorers compute pick v+1 during walk v (one descent
+//     ahead: mark v+1 needs next_free after walk v).  Two named barriers
+//     hand over (pick ready, mark done); the scorers sleep in bar.sync while
+//     the walk runs.
+//   descend, a level.  Four warps walk together, one slot per lane at
+//     K=128: six coalesced loads per lane go out first, c_puct and sqrtf run
+//     under them, and a lane scores one slot instead of four (an unvisited
+//     slot, most of a row, needs no division at all).  Each warp finds its
+//     last maximum with two redux.sync over an order-preserving key, the
+//     four candidates meet in shared memory behind a third named barrier,
+//     every warp picks the same winner and carries the same cur, nv and
+//     next_free, and the one thread that scored the chosen slot writes the
+//     mark from the value it loaded and links a created node.  Other K take
+//     the same code with a strided loop.
+//   expand+backup.  Phase 1: one thread per leaf walks its parent chain, all
+//     leaves at once (all of a level's loads go out whether wanted or
+//     not: a branch that few lanes take costs the whole warp a round trip),
+//     and records the path (edge index or root action) in shared memory.
+//     Then warps 1-7 install the rows of the new leaves (a leaf that occurs
+//     twice takes the first occurrence's row) while warp 0 runs phase 2: the
+//     leaves in order v = 0..V-1, the lanes applying one path's levels
+//     together, each with its three loads before its three stores, so the
+//     float adds into edge_w and root_w keep the leaf order and a path costs
+//     one round trip.  A path longer than PATH_CAP levels is finished by one
+//     lane, serially.  If a path passes through an unexpanded node (never in
+//     a tree the descend kernel grew), rows are installed in leaf order by
+//     warp 0 instead, so the result is the plain version's on any input.
+//   Tried and dropped: prefetch.global.L1 of the chosen child's rows (and of
+//     the next leaf's lines in the backup) made both kernels slower; a table
+//     of c_puct and sqrtf by visit total in shared memory changed nothing
+//     (the row loads, not those terms, are what a level waits for).
+//
+// tak_parent_chase and tak_child_chase are measuring aids, not ported
+// kernels: one thread follows a wave's paths, up through `parent` or down
+// through `edge_child`, one dependent load per level: the round trips that
+// no layout of the two kernels can avoid.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false (no
 // fast-math: logf/sqrtf/division must round as PyTorch's own CUDA ops do).
@@ -36,8 +87,20 @@
 
 #include "tree_common.cuh"
 
-#define DESCEND_THREADS 1024
-#define BACKUP_THREADS 128
+#define DESCEND_THREADS 512        // four warps walk, the others score
+#define WALK_WARPS 4
+#define WALK_THREADS (WALK_WARPS * 32)
+#define SCORE_WARPS (DESCEND_THREADS / 32 - WALK_WARPS)
+#define SCORE_THREADS (SCORE_WARPS * 32)
+#define PICK_THREADS (SCORE_THREADS + 32)   // the scorers and warp 0
+#define ROOT_STAGE_MAX 14000       // legal root actions staged, 16 B each
+#define BACKUP_THREADS 256
+#define PATH_CAP 128               // levels of a path kept in shared memory
+#define PATH_STRIDE (PATH_CAP + 1) // odd: no bank conflicts either way
+#define BAR_PICK 1                 // named barriers (0 is __syncthreads)
+#define BAR_MARK 2
+#define BAR_WALK 3
+#define FULL 0xffffffffu
 
 struct Dims {
   int B, M, K, A, V;
@@ -68,17 +131,66 @@ struct PendingWave {
   const int* results; const float* values; const int* to_move;
 };
 
-// Broadcast lane `src`'s value to the warp.
-__device__ __forceinline__ int warp_pick(int x, int src) {
-  return __shfl_sync(0xffffffffu, x, src);
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Order-preserving map of a score to an unsigned key (-0 counts as +0, as a
+// float comparison counts it).
+__device__ __forceinline__ unsigned score_key(float s) {
+  const unsigned u = __float_as_uint(s + 0.0f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float q_term(int n, int virt, float w) {
+  const float tot = (float)(n + virt);
+  return tot > 0.0f ? (w - (float)virt) / fmaxf(tot, 1.0f) : 0.0f;
+}
+
+// One edge slot's score; keeps the last maximum of the slots seen so far.
+// An unvisited slot (most of a row) needs no division: q is 0 and u's
+// denominator is 1.  An empty slot's numerator is 1 and not the 0 its prior
+// would give: written so, the level measured 12% faster on the card.
+struct Best {
+  float s; int slot, child, action, n, virt;
+};
+
+__device__ __forceinline__ void score_slot(Best& b, int k, int ea, int ec,
+                                           int en, int ev, float ep, float ew,
+                                           float cpe, float sqe) {
+  const bool used = ea != NONE;
+  const float num = used ? cpe * ep * sqe : 1.0f;
+  float sc;
+  if (en + ev != 0) {
+    const float tot = (float)(en + ev);
+    const float q = tot > 0.0f ? (ew - (float)ev) / fmaxf(tot, 1.0f) : 0.0f;
+    sc = q + num / (1.0f + tot);
+  } else {
+    sc = 0.0f + num;
+  }
+  if (!used) sc = -INFINITY;
+  if (sc >= b.s) {
+    b.s = sc; b.slot = k; b.child = ec; b.action = ea; b.n = en; b.virt = ev;
+  }
+}
+
+// `cap` is the number of legal root actions the dynamic shared memory can
+// stage.
 __global__ void __launch_bounds__(DESCEND_THREADS)
-descend_hbm_kernel(DescendTree t, Dims p, int* leaves_out,
+descend_hbm_kernel(DescendTree t, Dims p, int cap, int* leaves_out,
                    unsigned char* created_out) {
+  // the legal root actions, ascending: id, q, prior, 1 + n + virt
+  extern __shared__ float stage[];
   __shared__ float red_s[32];
   __shared__ int red_i[32];
-  __shared__ int sh_nf;
+  __shared__ int s_warp[DESCEND_THREADS / 32];
+  __shared__ int s_legal;
+  __shared__ int s_root[2][2];            // per descent: root child, visits
+  __shared__ int4 s_cand[2][WALK_WARPS];  // per level: key, slot, child, visits
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = blockIdx.x;
   const size_t m = (size_t)g * p.M, mk = m * p.K, ao = (size_t)g * p.A;
@@ -98,116 +210,235 @@ descend_hbm_kernel(DescendTree t, Dims p, int* leaves_out,
   const int* root_n = t.root_n + ao;
   int* root_virt = t.root_virt + ao;
   const float* root_w = t.root_w + ao;
+  int* s_act = (int*)stage;
+  float* s_q = stage + cap;
+  float* s_prior = stage + 2 * (size_t)cap;
+  float* s_den = stage + 3 * (size_t)cap;
 
   const int n0 = t.n0[g];
-  int virt0 = t.virt0[g];
-  int nf = t.next_free[g];
-  for (int v = 0; v < p.V; ++v) {
-    // ---- root selection: dense PUCT over the full action space ----
-    const float n0f = (float)(n0 + virt0);
-    const float cp = c_puct(n0f, p.base, p.init);
-    const float sq = sqrtf(n0f);
-    float best_s = -INFINITY;
-    int best_i = -1;
-    for (int a = tid; a < p.A; a += DESCEND_THREADS) {
-      const int rv = root_virt[a], rn = root_n[a];
-      const float tot = (float)(rn + rv);
-      const float q = tot > 0.0f ? (root_w[a] - (float)rv) / fmaxf(tot, 1.0f)
-                                 : 0.0f;
-      const float u = cp * root_prior[a] * sq / (1.0f + tot);
-      const float sc = root_legal[a] ? (q + u) + 0.0f : -INFINITY;
-      if (sc >= best_s) { best_s = sc; best_i = a; }
-    }
-    const int a0 = block_argmax_last(best_s, best_i, red_s, red_i);
+  const int virt0 = t.virt0[g];
 
+  // ---- stage the legal root actions once per launch: each thread counts
+  // the legal actions of its stretch, a block-wide prefix sum places them
+  // in ascending order ----
+  const int per = (p.A + DESCEND_THREADS - 1) / DESCEND_THREADS;
+  const int lo = min(tid * per, p.A), hi = min(lo + per, p.A);
+  int cnt = 0;
+  for (int a = lo; a < hi; ++a) cnt += root_legal[a] != 0;
+  int incl = cnt;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int x = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += x;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < DESCEND_THREADS / 32 ? s_warp[lane] : 0;
+    int wi = w;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int x = __shfl_up_sync(FULL, wi, off);
+      if (lane >= off) wi += x;
+    }
+    if (lane < DESCEND_THREADS / 32) s_warp[lane] = wi - w;
+    if (lane == 31) s_legal = wi;
+  }
+  __syncthreads();
+  const int legal = s_legal;
+  const bool staged = legal <= cap;   // the same for the whole block
+  if (staged) {
+    int j = s_warp[warp] + incl - cnt;
+    for (int a = lo; a < hi; ++a)
+      if (root_legal[a]) s_act[j++] = a;
+    __syncthreads();
+    // legal actions lie in runs, so the entries are filled one per thread
+    for (j = tid; j < legal; j += DESCEND_THREADS) {
+      const int a = s_act[j];
+      const int rn = root_n[a], rv = root_virt[a];
+      s_q[j] = q_term(rn, rv, root_w[a]);
+      s_prior[j] = root_prior[a];
+      s_den[j] = 1.0f + (float)(rn + rv);
+    }
+  }
+  __syncthreads();
+
+  if (warp >= WALK_WARPS) {
+    // ---- scorers: the PUCT pick of descent v, one descent ahead.  Staged:
+    // the index into the legal list; else the action, from global memory ----
+    const int st = tid - WALK_THREADS, sw = warp - WALK_WARPS;
+    for (int v = 0; v < p.V; ++v) {
+      if (v > 0) bar_sync(BAR_MARK, PICK_THREADS);   // mark v-1 applied
+      const float n0f = (float)(n0 + virt0 + v);
+      const float cp = c_puct(n0f, p.base, p.init);
+      const float sq = sqrtf(n0f);
+      float best_s = -INFINITY;
+      int best_i = -1;
+      if (staged) {
+        for (int j = st; j < legal; j += SCORE_THREADS) {
+          const float u = cp * s_prior[j] * sq / s_den[j];
+          const float sc = (s_q[j] + u) + 0.0f;
+          if (sc >= best_s) { best_s = sc; best_i = j; }
+        }
+      } else {
+#pragma unroll 2
+        for (int a = st; a < p.A; a += SCORE_THREADS) {
+          const int rv = root_virt[a], rn = root_n[a];
+          const float q = q_term(rn, rv, root_w[a]);
+          const float u = cp * root_prior[a] * sq / (1.0f + (float)(rn + rv));
+          const float sc = root_legal[a] ? (q + u) + 0.0f : -INFINITY;
+          if (sc >= best_s) { best_s = sc; best_i = a; }
+        }
+      }
+      warp_argmax_last(best_s, best_i);
+      if (lane == 0) { red_s[sw] = best_s; red_i[sw] = best_i; }
+      __threadfence_block();
+      __syncwarp();
+      bar_arrive(BAR_PICK, PICK_THREADS);
+    }
+    return;
+  }
+
+  // ---- the walkers: warp 0 marks the pick; then the four warps walk down
+  // together, a slot per lane, and agree on every level's choice through
+  // s_cand, so each carries the same cur, nv and nf ----
+  int nf = t.next_free[g];
+  int buf = 0;
+  for (int v = 0; v < p.V; ++v) {
     if (warp == 0) {
-      const int c0 = root_child[a0];
-      int nv = root_n[a0] + root_virt[a0];
-      const bool room0 = nf < p.M;
-      const bool create0 = c0 == NONE && room0;
-      __syncwarp();   // every lane has read the root entry before lane 0 marks it
+      bar_sync(BAR_PICK, PICK_THREADS);
+      float ps = lane < SCORE_WARPS ? red_s[lane] : -INFINITY;
+      int pick = lane < SCORE_WARPS ? red_i[lane] : -1;
+      warp_argmax_last(ps, pick);
+      // with no legal action every score is -inf and the last action wins
+      const int a0 = pick < 0 ? p.A - 1 : (staged ? s_act[pick] : pick);
       if (lane == 0) {
+        const int c0 = root_child[a0];
+        const int rn = root_n[a0], rv = root_virt[a0];
+        const bool room0 = nf < p.M;
         // no mark on a rootward create that finds the pool full
-        if (c0 != NONE || room0) root_virt[a0] += 1;
-        if (create0) {
+        if (c0 != NONE || room0) {
+          root_virt[a0] = rv + 1;
+          if (staged && pick >= 0) {
+            s_q[pick] = q_term(rn, rv + 1, root_w[a0]);
+            s_den[pick] = 1.0f + (float)(rn + rv + 1);
+          }
+        }
+        if (c0 == NONE && room0) {
           root_child[a0] = nf;
           parent[nf] = 0;
           parent_slot[nf] = NONE;
           parent_action[nf] = a0;
         }
+        s_root[v & 1][0] = c0;
+        s_root[v & 1][1] = rn + rv;
       }
+      __threadfence_block();
       __syncwarp();
-      int leaf_v = create0 ? nf : 0;
-      bool created_v = create0;
-      int cur = create0 ? NONE : c0;
-      if (create0) nf += 1;
+      if (v + 1 < p.V) bar_arrive(BAR_MARK, PICK_THREADS);
+    }
+    bar_sync(BAR_WALK, WALK_THREADS);
+    const int c0 = s_root[v & 1][0];
+    int nv = s_root[v & 1][1];
+    const bool create0 = c0 == NONE && nf < p.M;
+    int leaf_v = create0 ? nf : 0;
+    bool created_v = create0;
+    int cur = create0 ? NONE : c0;
+    if (create0) nf += 1;
 
-      // ---- walk down the tree until a leaf resolves ----
-      while (cur != NONE) {
-        const bool exp = expanded[cur] != 0;
-        const size_t row = (size_t)cur * p.K;
+    // ---- walk down the tree until a leaf resolves ----
+    while (cur != NONE) {
+      const size_t row = (size_t)cur * p.K;
+      const bool exp = expanded[cur] != 0;
+      Best b = {-INFINITY, -1, NONE, NONE, 0, 0};
+      if (p.K == WALK_THREADS) {
+        // one slot per lane: the six loads go out before c_puct and sqrtf
+        const size_t e = row + tid;
+        const int ea = edge_action[e], ec = edge_child[e];
+        const int en = edge_n[e], ev = edge_virt[e];
+        const float ep = edge_prior[e], ew = edge_w[e];
+        const float npf = (float)nv;
+        score_slot(b, tid, ea, ec, en, ev, ep, ew,
+                   c_puct(npf, p.base, p.init), sqrtf(npf));
+      } else {
         const float npf = (float)nv;
         const float cpe = c_puct(npf, p.base, p.init);
         const float sqe = sqrtf(npf);
-        float bs = -INFINITY;
-        int bi = -1, b_child = NONE, b_action = NONE, b_tot = 0;
-        for (int k = lane; k < p.K; k += 32) {
-          const int ev = edge_virt[row + k], en = edge_n[row + k];
-          const int ea = edge_action[row + k], ec = edge_child[row + k];
-          const float tot = (float)(en + ev);
-          const float q = tot > 0.0f
-                              ? (edge_w[row + k] - (float)ev) / fmaxf(tot, 1.0f)
-                              : 0.0f;
-          const float u = cpe * edge_prior[row + k] * sqe / (1.0f + tot);
-          const float sc = ea != NONE ? q + u : -INFINITY;
-          if (sc >= bs) {
-            bs = sc; bi = k; b_action = ea; b_tot = en + ev; b_child = ec;
-          }
-        }
-        warp_argmax_last(bs, bi);
-        const int slot = bi;
-        const int owner = slot & 31;   // slot k is scored by lane k % 32
-        const int child = warp_pick(b_child, owner);
-        const int action = warp_pick(b_action, owner);
-        const int cnv = warp_pick(b_tot, owner);
+        for (int k = tid; k < p.K; k += WALK_THREADS)
+          score_slot(b, k, edge_action[row + k], edge_child[row + k],
+                     edge_n[row + k], edge_virt[row + k], edge_prior[row + k],
+                     edge_w[row + k], cpe, sqe);
+      }
+      // the last maximum of this warp's slots, then of the four warps'
+      const unsigned key = score_key(b.s);
+      const unsigned top = __reduce_max_sync(FULL, key);
+      const int slot_w = __reduce_max_sync(FULL, key == top ? b.slot : -1);
+      if (b.slot == slot_w && (slot_w >= 0 || lane == 0))
+        s_cand[buf][warp] = make_int4((int)top, slot_w, b.child, b.n + b.virt);
+      bar_sync(BAR_WALK, WALK_THREADS);
+      int4 win = s_cand[buf][0];
+#pragma unroll
+      for (int w = 1; w < WALK_WARPS; ++w) {
+        const int4 c = s_cand[buf][w];
+        if ((unsigned)c.x > (unsigned)win.x ||
+            ((unsigned)c.x == (unsigned)win.x && c.y > win.y))
+          win = c;
+      }
+      buf ^= 1;
+      const int slot = win.y, child = win.z, cnv = win.w;
+      const bool want = exp && child == NONE;
+      const bool ok = want && nf < p.M;
+      if (slot >= 0 && b.slot == slot) {   // the thread that scored the slot
         const size_t e = row + slot;
-        const bool want = exp && child == NONE;
-        const bool ok = want && nf < p.M;
-        if (lane == 0) {
-          if (exp) edge_virt[e] += 1;
-          if (ok) {
-            edge_child[e] = nf;
-            parent[nf] = cur;
-            parent_slot[nf] = slot;
-            parent_action[nf] = action;
-          }
+        if (exp) edge_virt[e] = b.virt + 1;
+        if (ok) {
+          edge_child[e] = nf;
+          parent[nf] = cur;
+          parent_slot[nf] = slot;
+          parent_action[nf] = b.action;
         }
-        __syncwarp();
-        const bool stopping = !exp || want;
-        if (stopping) leaf_v = ok ? nf : cur;
-        if (ok) { created_v = true; nf += 1; }
-        if (!stopping) nv = cnv;
-        cur = stopping ? NONE : child;
       }
-      if (lane == 0) {
-        leaves_out[(size_t)g * p.V + v] = leaf_v;
-        created_out[(size_t)g * p.V + v] = created_v ? 1 : 0;
-        sh_nf = nf;
-      }
+      const bool stopping = !exp || want;
+      if (stopping) leaf_v = ok ? nf : cur;
+      if (ok) { created_v = true; nf += 1; }
+      if (!stopping) nv = cnv;
+      cur = stopping ? NONE : child;
     }
-    __syncthreads();
-    nf = sh_nf;
-    virt0 += 1;
+    if (tid == 0) {
+      leaves_out[(size_t)g * p.V + v] = leaf_v;
+      created_out[(size_t)g * p.V + v] = created_v ? 1 : 0;
+    }
   }
   if (tid == 0) {
-    t.virt0[g] = virt0;
+    t.virt0[g] = virt0 + p.V;
     t.next_free[g] = nf;
   }
 }
 
+// One level of a backup: the read-modify-writes of an edge or a root action,
+// the three loads first so that they share one round trip.
+__device__ __forceinline__ void apply_edge(int* n, int* virt, float* w,
+                                           size_t e, float add) {
+  const int en = n[e], ev = virt[e];
+  const float ew = w[e];
+  n[e] = en + 1;
+  virt[e] = ev - 1;
+  w[e] = ew + add;
+}
+
 __global__ void __launch_bounds__(BACKUP_THREADS)
 expand_backup_hbm_kernel(BackupTree t, PendingWave pd, Dims p) {
-  const int tid = threadIdx.x;
+  // per leaf: PATH_STRIDE path codes, then length, node to go on from,
+  // root visits seen, leaf, install flags (candidate, first), value
+  extern __shared__ int sh[];
+  int* path = sh;
+  int* s_len = path + (size_t)p.V * PATH_STRIDE;
+  int* s_next = s_len + p.V;
+  int* s_roots = s_next + p.V;
+  int* s_leaf = s_roots + p.V;
+  int* s_cand = s_leaf + p.V;
+  int* s_first = s_cand + p.V;
+  float* s_val = (float*)(s_first + p.V);
+  __shared__ int s_odd;   // a path passes through an unexpanded node
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = blockIdx.x;
   const size_t m = (size_t)g * p.M, mk = m * p.K, ao = (size_t)g * p.A;
   const int* parent = t.parent + m;
@@ -223,63 +454,168 @@ expand_backup_hbm_kernel(BackupTree t, PendingWave pd, Dims p) {
   int* root_n = t.root_n + ao;
   int* root_virt = t.root_virt + ao;
   float* root_w = t.root_w + ao;
+  const size_t pg = (size_t)g * p.V;
+  // expansion: slot k of leaf v's top-K prior row
+  auto install = [&](int v, int k) {
+    const size_t dst = (size_t)s_leaf[v] * p.K + k;
+    const size_t src = (pg + v) * p.K + k;
+    const float va = pd.topk_vals[src];
+    const bool okm = va >= 0.0f;
+    edge_action[dst] = okm ? pd.topk_aidx[src] : NONE;
+    edge_child[dst] = NONE;
+    edge_prior[dst] = okm ? va : 0.0f;
+    edge_n[dst] = 0;
+    edge_virt[dst] = 0;
+    edge_w[dst] = 0.0f;
+    if (k == 0) expanded[s_leaf[v]] = 1;
+  };
 
+  if (tid == 0) s_odd = 0;
+  __syncthreads();
+  // ---- phase 1: every leaf's walk to the root, all at once ----
+  for (int v = tid; v < p.V; v += BACKUP_THREADS) {
+    const int leaf = pd.leaves[pg + v];
+    const int res = pd.results[pg + v];
+    const int winner = (res == 1 || res == 3) ? 0
+                       : ((res == 2 || res == 4) ? 1 : -1);
+    const float term = winner < 0 ? 0.0f
+                       : (pd.to_move[pg + v] == winner ? 1.0f : -1.0f);
+    s_val[v] = res != ONGOING ? term : pd.values[pg + v];
+    s_leaf[v] = leaf;
+    s_cand[v] = res == ONGOING && leaf != 0 && expanded[leaf] == 0;
+    int* code = path + (size_t)v * PATH_STRIDE;
+    int cur = leaf, d = 0, roots = 0, odd = 0;
+    while (cur != NONE && d < PATH_CAP) {
+      // all of a level's loads at once, wanted or not: a branch that only
+      // some lanes take would cost the warp its own round trip
+      const int par = parent[cur], s = parent_slot[cur];
+      const int a = parent_action[cur];
+      // every node above the leaf should be expanded (its row is touched)
+      if (d > 0) odd |= expanded[cur] == 0;
+      int c = NONE;   // a level that adds nothing
+      if (par == 0 && s == NONE) {
+        if (a >= 0 && a < p.A) c = -2 - a;
+      } else if (par != NONE && s >= 0 && s < p.K) {
+        c = par * p.K + s;
+      }
+      code[d] = c;
+      roots += cur == 0;
+      cur = par;
+      ++d;
+    }
+    s_len[v] = d;
+    s_next[v] = cur;
+    s_roots[v] = roots;
+    // a tail past PATH_CAP is not looked at: install in leaf order then
+    if (odd || cur != NONE) s_odd = 1;
+  }
+  __syncthreads();
+  // a leaf that occurs twice takes the first occurrence's row
+  for (int v = tid; v < p.V; v += BACKUP_THREADS) {
+    int first = s_cand[v];
+    for (int u = 0; u < v && first; ++u)
+      if (s_leaf[u] == s_leaf[v] && s_cand[u]) first = 0;
+    s_first[v] = first;
+  }
+  __syncthreads();
+  const bool in_order = s_odd != 0;
+
+  if (warp != 0) {
+    // ---- the new leaves' rows, all at once: no backup of this wave
+    // touches them (every node on a path is expanded) ----
+    if (in_order) return;
+    const int total = p.V * p.K;
+#pragma unroll 4
+    for (int i = tid - 32; i < total; i += BACKUP_THREADS - 32) {
+      const int v = i / p.K;
+      if (s_first[v]) install(v, i - v * p.K);
+    }
+    return;
+  }
+
+  // ---- phase 2: warp 0 applies the backups in leaf order ----
   int n0 = t.n0[g], virt0 = t.virt0[g];
   for (int v = 0; v < p.V; ++v) {
-    const size_t pv = (size_t)g * p.V + v;
-    const int leaf = pd.leaves[pv];
-    const int res = pd.results[pv];
-    const bool was_exp = expanded[leaf] != 0;
-    __syncthreads();   // every thread has read the flag before it is set
-    // ---- expansion: install the leaf's top-K prior row ----
-    if (res == ONGOING && leaf != 0 && !was_exp) {
-      const size_t row = (size_t)leaf * p.K;
-      const size_t src = pv * p.K;
-      for (int k = tid; k < p.K; k += BACKUP_THREADS) {
-        const float va = pd.topk_vals[src + k];
-        const bool okm = va >= 0.0f;
-        edge_action[row + k] = okm ? pd.topk_aidx[src + k] : NONE;
-        edge_child[row + k] = NONE;
-        edge_prior[row + k] = okm ? va : 0.0f;
-        edge_n[row + k] = 0;
-        edge_virt[row + k] = 0;
-        edge_w[row + k] = 0.0f;
-      }
-      if (tid == 0) expanded[leaf] = 1;
+    if (in_order && s_first[v]) {
+      for (int k = lane; k < p.K; k += 32) install(v, k);
+      __syncwarp();
     }
-    // ---- sign-alternating walk to the root (one thread) ----
-    if (tid == 0) {
-      const int winner = (res == 1 || res == 3) ? 0
-                         : ((res == 2 || res == 4) ? 1 : -1);
-      const float term = winner < 0 ? 0.0f
-                         : (pd.to_move[pv] == winner ? 1.0f : -1.0f);
-      const float val = res != ONGOING ? term : pd.values[pv];
-      float sign = -1.0f;
-      int cur = leaf;
-      while (cur != NONE) {
-        const int par = parent[cur], s = parent_slot[cur];
-        const float add = sign * val;
-        if (par == 0 && s == NONE) {
-          const int a = parent_action[cur];
-          if (a >= 0 && a < p.A) {
-            root_n[a] += 1;
-            root_virt[a] -= 1;
-            root_w[a] = root_w[a] + add;
+    const float val = s_val[v];
+    const int len = s_len[v];
+    const int* code = path + (size_t)v * PATH_STRIDE;
+    // the edges of one path are all different: its levels go together
+    for (int d = lane; d < len; d += 32) {
+      const int c = code[d];
+      const float add = ((d & 1) ? 1.0f : -1.0f) * val;
+      // an edge and a root action take the same instructions, so a path's
+      // lanes stay together through one round trip
+      const bool edge = c >= 0;
+      if (edge || c <= -2)
+        apply_edge(edge ? edge_n : root_n, edge ? edge_virt : root_virt,
+                   edge ? edge_w : root_w, (size_t)(edge ? c : -2 - c), add);
+    }
+    n0 += s_roots[v];
+    virt0 -= s_roots[v];
+    __syncwarp();   // leaf v's levels are applied before anything later
+    if (s_next[v] != NONE) {
+      // ---- the rest of a path longer than PATH_CAP: one lane, serially ----
+      if (lane == 0) {
+        float sign = (len & 1) ? 1.0f : -1.0f;
+        int cur = s_next[v];
+        while (cur != NONE) {
+          const int par = parent[cur], s = parent_slot[cur];
+          const float add = sign * val;
+          if (par == 0 && s == NONE) {
+            const int a = parent_action[cur];
+            if (a >= 0 && a < p.A)
+              apply_edge(root_n, root_virt, root_w, (size_t)a, add);
+          } else if (par != NONE && s >= 0 && s < p.K) {
+            apply_edge(edge_n, edge_virt, edge_w, (size_t)par * p.K + s, add);
           }
-        } else if (par != NONE && s >= 0 && s < p.K) {
-          const size_t e = (size_t)par * p.K + s;
-          edge_n[e] += 1;
-          edge_virt[e] -= 1;
-          edge_w[e] = edge_w[e] + add;
+          if (cur == 0) { n0 += 1; virt0 -= 1; }
+          cur = par;
+          sign = -sign;
         }
-        if (cur == 0) { n0 += 1; virt0 -= 1; }
-        cur = par;
-        sign = -sign;
       }
+      n0 = __shfl_sync(FULL, n0, 0);
+      virt0 = __shfl_sync(FULL, virt0, 0);
+      __syncwarp();
     }
-    __syncthreads();   // leaf v is wholly applied before leaf v+1 starts
   }
-  if (tid == 0) { t.n0[g] = n0; t.virt0[g] = virt0; }
+  if (lane == 0) { t.n0[g] = n0; t.virt0[g] = virt0; }
+}
+
+// One thread per game follows the parent links of the wave's leaves, leaf
+// after leaf: one dependent load per level.
+__global__ void parent_chase_kernel(const int* parent, const int* leaves,
+                                    int M, int V, int* levels_out) {
+  const int g = blockIdx.x;
+  const int* par = parent + (size_t)g * M;
+  int levels = 0;
+  for (int v = 0; v < V; ++v) {
+    int cur = leaves[(size_t)g * V + v];
+    while (cur != NONE) { cur = par[cur]; ++levels; }
+  }
+  levels_out[g] = levels;
+}
+
+// The same paths downwards, as a descent must read them: the root action's
+// child, then the chosen slot's child of every node passed (slots [B, V, D],
+// NONE ends a path).  Writes the node each path ends in.
+__global__ void child_chase_kernel(const int* root_child,
+                                   const int* edge_child, const int* actions,
+                                   const int* slots, int M, int K, int A,
+                                   int V, int D, int* ends_out) {
+  const int g = blockIdx.x;
+  const int* child = edge_child + (size_t)g * M * K;
+  for (int v = 0; v < V; ++v) {
+    const int a = actions[(size_t)g * V + v];
+    const int* path = slots + ((size_t)g * V + v) * D;
+    int cur = a == NONE ? 0 : root_child[(size_t)g * A + a];
+    for (int i = 0; i < D && path[i] != NONE; ++i)
+      cur = child[(size_t)cur * K + path[i]];
+    ends_out[(size_t)g * V + v] = cur;
+  }
 }
 
 extern "C" int tak_descend_wave_hbm(
@@ -303,8 +639,18 @@ extern "C" int tak_descend_wave_hbm(
   t.root_w = (const float*)root_w;
   t.n0 = (const int*)n0; t.virt0 = (int*)virt0; t.next_free = (int*)next_free;
   const Dims p = {B, M, K, A, V, base, init};
-  descend_hbm_kernel<<<B, DESCEND_THREADS, 0, (cudaStream_t)stream>>>(
-      t, p, (int*)leaves, (unsigned char*)created);
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        descend_hbm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(4 * sizeof(float) * ROOT_STAGE_MAX));
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  const int cap = A < ROOT_STAGE_MAX ? A : ROOT_STAGE_MAX;
+  descend_hbm_kernel<<<B, DESCEND_THREADS, 4 * sizeof(float) * cap,
+                       (cudaStream_t)stream>>>(
+      t, p, cap, (int*)leaves, (unsigned char*)created);
   return (int)cudaGetLastError();
 }
 
@@ -331,7 +677,34 @@ extern "C" int tak_expand_backup_wave_hbm(
   pd.topk_aidx = (const int*)topk_aidx; pd.results = (const int*)results;
   pd.values = (const float*)values; pd.to_move = (const int*)to_move;
   const Dims p = {B, M, K, A, V, 0.0f, 0.0f};
-  expand_backup_hbm_kernel<<<B, BACKUP_THREADS, 0, (cudaStream_t)stream>>>(
-      t, pd, p);
+  // V x (PATH_STRIDE + 7) words: the wrapper keeps V within MAX_WAVE
+  const size_t bytes = sizeof(int) * (size_t)V * (PATH_STRIDE + 7);
+  static size_t sized = 48 * 1024;
+  if (bytes > sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        expand_backup_hbm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    sized = bytes;
+  }
+  expand_backup_hbm_kernel<<<B, BACKUP_THREADS, bytes,
+                             (cudaStream_t)stream>>>(t, pd, p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tak_parent_chase(int B, int M, int V, void* parent,
+                                void* leaves, void* levels, void* stream) {
+  parent_chase_kernel<<<B, 1, 0, (cudaStream_t)stream>>>(
+      (const int*)parent, (const int*)leaves, M, V, (int*)levels);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tak_child_chase(int B, int M, int K, int A, int V, int D,
+                               void* root_child, void* edge_child,
+                               void* actions, void* slots, void* ends,
+                               void* stream) {
+  child_chase_kernel<<<B, 1, 0, (cudaStream_t)stream>>>(
+      (const int*)root_child, (const int*)edge_child, (const int*)actions,
+      (const int*)slots, M, K, A, V, D, (int*)ends);
   return (int)cudaGetLastError();
 }

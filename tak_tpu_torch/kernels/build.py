@@ -68,6 +68,10 @@ SIGNATURES = {
                              + [_P] * 22),
     # B, M, K, A, V, 15 tree fields, 6 pending fields, stream
     "tak_expand_backup_wave_hbm": ("tree_wave_hbm", [_I] * 5 + [_P] * 22),
+    # B, M, V, parent, leaves, levels, stream
+    "tak_parent_chase": ("tree_wave_hbm", [_I] * 3 + [_P] * 4),
+    # B, M, K, A, V, D, root_child, edge_child, actions, slots, ends, stream
+    "tak_child_chase": ("tree_wave_hbm", [_I] * 6 + [_P] * 6),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -29,13 +29,20 @@ memory and the L2 caches what the walk touches, so only the semantics
 above are ported.
 
 CUDA design (`csrc/tree_wave_hbm.cu`): one thread block per game (the
-Player runs one game, so one block).  All 1024 threads score the 9,036
-root actions (a block-wide last-max argmax); then warp 0 walks the tree,
-each lane scoring K/32 slots of the row (4 at K=128) before a warp-wide
-argmax, and lane 0 makes every scalar update.  The expand+backup kernel
-installs a row with the whole block and walks with one thread.  What
+Player runs one game, so one block).  Descend: the legal root actions
+are staged once per launch in shared memory, in ascending order (q, prior
+and denominator; global reads if more are legal than fit); four warps
+walk the tree together, a slot per lane at K=128, and agree on each
+level's choice through shared memory, while the other twelve warps
+already score the next descent's root pick, handed over through named
+barriers; the thread that scored the chosen slot writes the mark.
+Expand+backup: one thread per leaf records its path to the root, all
+leaves at once; then one warp applies the paths in leaf order, a path's
+levels together, while the other warps install the new rows.  What
 bounds them on the H100: neither bytes nor operations but latency, the
-chain of dependent global loads of each descent, on one SM of 132.
+chain of dependent global loads of each descent, on one SM of 132;
+`parent_chase` and `child_chase` measure that round trip on a wave's own
+paths.
 
 The plain PyTorch versions below are batched over games and loop over
 the V descents and the walk; they are what a CPU tensor runs and what
@@ -241,10 +248,20 @@ _PENDING_ARGS = (
 )
 
 
+MAX_WAVE = 384           # leaves whose recorded paths fit shared memory
+
+
 def _dims(tree: Tree, V: int) -> dict:
+    """The kernels' dimensions; raises on a shape they do not take."""
     B, M, K = tree.edge_n.shape
     if K > 1024:
-        raise ValueError(f"max_children {K} above the kernel's 1024")
+        raise ValueError(f"max_children {K} above the kernels' 1024")
+    if M * K >= 2 ** 31:
+        raise ValueError(f"{M} nodes x {K} children: an edge index does not "
+                         "fit the 32-bit path codes of the backup kernel")
+    if not 1 <= V <= MAX_WAVE:
+        raise ValueError(f"wave size {V} outside 1..{MAX_WAVE}: the backup "
+                         "kernel keeps every leaf's path in shared memory")
     return {"B": B, "M": M, "K": K, "A": tree.root_n.shape[1], "V": V}
 
 
@@ -287,3 +304,97 @@ def expand_backup_wave_hbm(tree: Tree, pending: Pending) -> None:
         kb.stream_ptr(dev))
     kb.check(err, "expand_backup_wave_hbm")
     kb.LAUNCHES["expand_backup_wave_hbm"] += 1
+
+
+# ---------------------------------------------------------------------------
+# Measuring aids: the dependent-load chains of a wave (no ported kernel)
+# ---------------------------------------------------------------------------
+
+def parent_chase(tree: Tree, leaves: torch.Tensor) -> torch.Tensor:
+    """Levels [B] on the parent chains of `leaves` [B, V], followed by one
+    thread per game, leaf after leaf, one dependent load per level: the
+    round trip that the backup kernel's walks cannot avoid.  A measuring
+    aid, not a ported kernel, so it counts no launch.  On the CPU the same
+    count with tensor operations."""
+    dev = tree.n0.device
+    B, M = tree.parent.shape
+    leaves = leaves.to(torch.int32).contiguous()
+    if dev.type == "cpu":
+        b = torch.arange(B)[:, None]
+        cur = leaves.long()
+        levels = torch.zeros(B, dtype=torch.int32)
+        while bool((cur != NONE).any()):
+            levels += (cur != NONE).sum(1).int()
+            cur = torch.where(cur != NONE,
+                              tree.parent[b, cur.clamp(min=0)].long(), cur)
+        return levels
+    levels = torch.empty(B, dtype=torch.int32, device=dev)
+    lib = kb.library("tree_wave_hbm")
+    err = lib.tak_parent_chase(B, M, leaves.shape[1], kb.ptr(tree.parent),
+                               kb.ptr(leaves), kb.ptr(levels),
+                               kb.stream_ptr(dev))
+    kb.check(err, "parent_chase")
+    return levels
+
+
+def wave_paths(tree: Tree, leaves: torch.Tensor):
+    """The paths from the root to `leaves` [B, V], read off the parent
+    links on the host: (actions [B, V], the root action of each path or
+    NONE for the root itself; slots [B, V, D], the edge slot taken at every
+    node below, NONE after the path's end), int32 on the tree's device."""
+    import numpy as np
+
+    parent = tree.parent.cpu().numpy()
+    slot = tree.parent_slot.cpu().numpy()
+    action = tree.parent_action.cpu().numpy()
+    B, V = leaves.shape
+    paths = [[[] for _ in range(V)] for _ in range(B)]
+    actions = np.full((B, V), NONE, np.int32)
+    for g in range(B):
+        for v, cur in enumerate(leaves[g].tolist()):
+            while cur > 0:
+                if slot[g, cur] == NONE:
+                    actions[g, v] = action[g, cur]
+                else:
+                    paths[g][v].append(int(slot[g, cur]))
+                cur = int(parent[g, cur])
+    D = max(1, max(len(p) for row in paths for p in row))
+    slots = np.full((B, V, D), NONE, np.int32)
+    for g in range(B):
+        for v, p in enumerate(paths[g]):
+            slots[g, v, :len(p)] = p[::-1]
+    dev = tree.n0.device
+    return (torch.as_tensor(actions, device=dev),
+            torch.as_tensor(slots, device=dev))
+
+
+def child_chase(tree: Tree, actions: torch.Tensor,
+                slots: torch.Tensor) -> torch.Tensor:
+    """The node each path of `wave_paths` ends in [B, V], followed
+    downwards through `root_child` and `edge_child` by one thread per game,
+    path after path, one dependent load per level: the round trip that the
+    descend kernel's walks cannot avoid (it must read the chosen slot's
+    child out of every node's row).  A measuring aid: counts no launch."""
+    dev = tree.n0.device
+    B, M, K = tree.edge_child.shape
+    V, D = slots.shape[1:]
+    if dev.type == "cpu":
+        ends = torch.zeros((B, V), dtype=torch.int32)
+        for g in range(B):
+            for v in range(V):
+                a = int(actions[g, v])
+                cur = 0 if a == NONE else int(tree.root_child[g, a])
+                for s in slots[g, v].tolist():
+                    if s == NONE:
+                        break
+                    cur = int(tree.edge_child[g, cur, s])
+                ends[g, v] = cur
+        return ends
+    ends = torch.empty((B, V), dtype=torch.int32, device=dev)
+    lib = kb.library("tree_wave_hbm")
+    err = lib.tak_child_chase(
+        B, M, K, tree.root_child.shape[1], V, D, kb.ptr(tree.root_child),
+        kb.ptr(tree.edge_child), kb.ptr(actions), kb.ptr(slots),
+        kb.ptr(ends), kb.stream_ptr(dev))
+    kb.check(err, "child_chase")
+    return ends

@@ -7,19 +7,30 @@ network whose outputs are exact in both frameworks, so whole trees must
 match bit for bit, every field, node states included: no tolerance.
 """
 
+import types
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tak_tpu.engine.core import get_engine as jax_engine
 from tak_tpu.mcts.search import MCTS as JaxMCTS
 from tak_tpu.mcts.search import SearchConfig as JaxSearchConfig
 from tak_tpu_torch.engine.core import Engine
+from tak_tpu_torch.mcts import tree_cases
 from tak_tpu_torch.mcts.search import MCTS, SearchConfig
+from tak_tpu_torch.mcts.tree_kernels import Pending
 from tak_tpu_torch.mcts.tree_kernels_hbm import (
     MAX_HBM_NODES,
+    MAX_WAVE,
+    _dims,
+    child_chase,
     descend_wave_hbm_plain,
     expand_backup_wave_hbm_plain,
     fits_hbm,
+    parent_chase,
+    wave_paths,
 )
 from tak_tpu_torch.mcts.tree import Tree
 from tak_tpu_torch.types import FIELDS, GameState
@@ -169,3 +180,150 @@ def test_tier_rules():
     # a recycling tree too big for the pool tier has no tier in the port
     with pytest.raises(NotImplementedError):
         MCTS(engine, None, SearchConfig(recycle=True, node_budget=20_000))
+
+
+# ---- hand-built trees: the cases that the CUDA kernels' layout puts at risk
+
+HAND_V = 8
+HAND_CONFIGS = {
+    # A = 944 and 243: neither a multiple of 1,024 (nor of 128)
+    "4x4_k32": dict(n=4, k=32),
+    "3x3_k128": dict(n=3, k=128),
+}
+HAND_CASES = ([(case, "4x4_k32") for case in tree_cases.CASES]
+              + [(case, "3x3_k128")
+                 for case in ("shared_prefix", "dups_twice", "pool_full")])
+_hand_searches = {}
+
+
+def hand_search(config):
+    """(JAX MCTS on "pallas_hbm" in interpret mode, port MCTS, start states)
+    for one shape; every case of that shape shares the compiled kernels."""
+    if config not in _hand_searches:
+        n, k = HAND_CONFIGS[config]["n"], HAND_CONFIGS[config]["k"]
+        budget = tree_cases.nodes_needed(HAND_V) + 8
+        kw = dict(num_sims=HAND_V, wave_size=HAND_V, max_children=k,
+                  node_budget=budget, backend="pallas_hbm")
+        jm = JaxMCTS(jax_engine(n), None, JaxSearchConfig(**kw))
+        tm = MCTS(Engine(n), None, SearchConfig(**kw))
+        assert jm._pallas_kind == "hbm" and tm.tier == "hbm"
+        _hand_searches[config] = (jm, tm, start_states(n, [], 2))
+    return _hand_searches[config]
+
+
+def hand_trees(case, config, seed):
+    """The same hand-built tree as a JAX tree and as a port tree."""
+    jm, tm, states = hand_search(config)
+    cfg = tm.config
+    fields = tree_cases.hand_tree(case, 2, cfg.max_nodes, cfg.max_children,
+                                  tm.engine.num_actions, HAND_V, seed)
+    jt = jm.init_batch(states).replace(
+        **{f: jnp.asarray(a) for f, a in fields.items()})
+    tt = tm.init_batch(GameState.from_numpy(states))
+    for f, a in fields.items():
+        getattr(tt, f).copy_(torch.as_tensor(a))
+    return jt, tt
+
+
+@pytest.mark.parametrize("case,config", HAND_CASES)
+def test_hand_built_waves_bitwise(case, config):
+    """One descend wave and one expand+backup wave on a hand-built tree:
+    the plain versions against the Pallas kernels in interpret mode, every
+    tree field bitwise (tolerance 0).  The pending evaluation is made from
+    a seed: rows that differ between the occurrences of a repeated leaf,
+    values that are not dyadic, every third leaf terminal."""
+    jm, tm, _ = hand_search(config)
+    cfg = tm.config
+    K, A, V = cfg.max_children, tm.engine.num_actions, HAND_V
+    jt, tt = hand_trees(case, config, seed=3)
+    jt, w_leaves, w_created = jm._descend(jt)
+    leaves, created = descend_wave_hbm_plain(
+        tt, V, base=cfg.exploration_base, init=cfg.exploration_init)
+    assert_trees_equal(jt, tt, f"{case} descend")
+    np.testing.assert_array_equal(leaves.numpy(), np.asarray(w_leaves))
+    np.testing.assert_array_equal(created.numpy(), np.asarray(w_created))
+
+    # the wave is the hard case it was built to be
+    lv = leaves.numpy()
+    spec = tree_cases.CASES[case]
+    if case == "one_leaf":
+        assert (lv == spec["chain"]).all() and not created.any()
+    elif case == "dups_twice":
+        assert all((np.bincount(row)[row] == 2).all() for row in lv)
+    elif case == "root_creates":
+        assert created.all() and (tt.parent.numpy()[0, lv[0]] == 0).all()
+    elif case == "pool_full":
+        assert (lv[:, V // 2:] == 0).all() and (lv[:, :V // 2] > 0).all()
+        assert (tt.next_free.numpy() == cfg.max_nodes).all()
+    else:
+        depth = parent_chase(tt, leaves).numpy() / V - 1
+        assert (depth >= spec["chain"]).all()
+
+    pending = tree_cases.hand_pending(lv, K, A, seed=5)
+    order = ("leaves", "topk_vals", "topk_aidx", "results", "values",
+             "to_move")
+    jt = jm._expand_backup(jt, *(jnp.asarray(pending[f]) for f in order))
+    expand_backup_wave_hbm_plain(
+        tt, Pending(**{f: torch.as_tensor(a) for f, a in pending.items()},
+                    valid=1))
+    assert_trees_equal(jt, tt, f"{case} expand_backup")
+    assert not tt.virt0.any()
+    if case in ("shared_prefix", "deep_chain"):
+        # the chain's edges took every leaf's value, in leaf order
+        assert (np.abs(tt.edge_n.numpy()).max((1, 2)) == 1000 + V).all()
+
+
+def test_repeated_leaf_takes_first_row():
+    """A leaf that occurs V times installs the row of its first ongoing
+    occurrence and no other; a terminal occurrence installs none."""
+    _, tm, _ = hand_search("4x4_k32")
+    cfg = tm.config
+    K, A, V = cfg.max_children, tm.engine.num_actions, HAND_V
+    _, tt = hand_trees("one_leaf", "4x4_k32", seed=9)
+    leaves, _ = descend_wave_hbm_plain(
+        tt, V, base=cfg.exploration_base, init=cfg.exploration_init)
+    pending = tree_cases.hand_pending(leaves.numpy(), K, A, seed=11)
+    pending["results"][:, 0] = 1        # the first occurrence is terminal
+    expand_backup_wave_hbm_plain(
+        tt, Pending(**{f: torch.as_tensor(a) for f, a in pending.items()},
+                    valid=1))
+    leaf = int(leaves[0, 0])
+    assert (pending["results"][:, 1] == 0).all()
+    for g in range(2):
+        vals = pending["topk_vals"][g, 1]
+        want = np.where(vals >= 0, pending["topk_aidx"][g, 1], -1)
+        np.testing.assert_array_equal(tt.edge_action[g, leaf].numpy(), want)
+        np.testing.assert_array_equal(tt.edge_prior[g, leaf].numpy(),
+                                      np.maximum(vals, 0))
+
+
+def test_chase_aids_follow_the_wave():
+    """`wave_paths` + `child_chase` end in the wave's leaves, and
+    `parent_chase` counts depth + 1 levels per leaf (CPU versions)."""
+    _, tm, _ = hand_search("4x4_k32")
+    cfg = tm.config
+    for case in ("deep_chain", "pool_full"):
+        _, tt = hand_trees(case, "4x4_k32", seed=13)
+        leaves, _ = descend_wave_hbm_plain(
+            tt, HAND_V, base=cfg.exploration_base, init=cfg.exploration_init)
+        actions, slots = wave_paths(tt, leaves)
+        np.testing.assert_array_equal(
+            child_chase(tt, actions, slots).numpy(), leaves.numpy())
+        depth = (actions != -1).int() + (slots != -1).sum(-1).int()
+        np.testing.assert_array_equal(parent_chase(tt, leaves).numpy(),
+                                      (depth + 1).sum(1).numpy())
+
+
+@pytest.mark.parametrize("M,K,V", [(2 ** 22, 1024, 64), (1024, 2048, 64),
+                                   (1024, 128, MAX_WAVE + 1), (1024, 128, 0)])
+def test_wrapper_refuses_shapes(M, K, V):
+    """Shapes the CUDA kernels do not take raise with a message instead of
+    running wrong or slow."""
+    fake = types.SimpleNamespace(
+        edge_n=torch.empty((1, M, K), device="meta"),
+        root_n=torch.empty((1, 9036), device="meta"))
+    with pytest.raises(ValueError):
+        _dims(fake, V)
+    assert _dims(types.SimpleNamespace(
+        edge_n=torch.empty((1, 131_072, 128), device="meta"),
+        root_n=fake.root_n), 64)["K"] == 128
