@@ -18,7 +18,12 @@ Phases, each fatal on failure:
          seed (Philox written out in the kernel and in the plain version);
        * one backup+descend wave (valid=1), one descend wave (valid=0) and
          one expand+backup flush on 32 trees mid-search, with the 1280-node
-         pool full so every create recycles a node;
+         pool full so every create recycles a node; then the three in turn
+         on the recycling cases of `tak_tpu_torch.mcts.tree_cases` (the
+         create's own parent as the coldest candidate, a full pool without
+         a victim, tied and clamped keys, a leaf unpinned and evicted in
+         one merged wave) and on its shared-prefix, repeated-leaf and
+         deep-chain trees with recycling, at K=32, A=9,036, M=1,280;
        * the large-tree descend and expand+backup waves at the Player's
          shape (one game, V=64, K=128, a 131,072-node pool, 9,036 actions)
          on a tree of several thousand nodes grown by the plain versions,
@@ -59,12 +64,14 @@ Phases, each fatal on failure:
      1..8) with one synchronization: env steps per second.  Checks: nothing
      but the rollout kernel launched, every row ongoing, pieces conserved;
      then the sampler kernel draws one action per final row, all legal;
-  7. time each kernel (CUDA events) and its plain version at the main
-     paths' shapes, with the least time the card could take (bound); for
-     the large-tree waves also the chain floor: a one-thread pointer chase
-     along the wave's own paths (down through `edge_child` for the descend
-     kernel, up through `parent` for the backup kernel), since descents
-     that see each other's marks cannot approach a throughput bound;
+  7. time each kernel (CUDA events; a kernel launched twenty times back to
+     back behind a spin long enough for the host to queue them all) and
+     its plain version at the main paths' shapes, with the least time the
+     card could take (bound); for the five tree waves also the chain
+     floor: a one-thread pointer chase along the wave's own paths (down
+     through `edge_child` for the descents, up through `parent` for the
+     backups), since descents that see each other's marks cannot approach
+     a throughput bound;
   8. print one `{"kernels": [...]}` line, then the `{"ok": true, ...}` line.
      A kernel's `ms`, `plain_ms` and `bound_ms` are those of its main-path
      shape (the large-tree waves: the Player's own tree); `other_shapes`
@@ -96,6 +103,7 @@ N = 6
 GAMES = 32
 SIMS = 10_240
 WAVE = 256
+ROWS = GAMES * WAVE            # fused-step rows per wave
 K = 32
 POOL = 1280
 MOVES = 3
@@ -163,12 +171,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, setup=None) -> float:
+def cuda_ms(fn, reps: int, setup=None, spin: int = 1_000_000) -> float:
     """Mean device milliseconds of fn(setup()) over `reps` runs (CUDA
     events around each launch; `setup` runs outside the timed span).  The
-    card spins for about half a millisecond ahead of the first event, so
-    that the host has queued the launch before the card reaches it: the
-    span holds the kernel and not the host's way to the launch."""
+    card spins for `spin` cycles (about half a millisecond) ahead of the
+    first event, so that the host has queued the launch before the card
+    reaches it: the span holds the kernel and not the host's way to the
+    launch."""
     import torch
 
     total = 0.0
@@ -177,13 +186,22 @@ def cuda_ms(fn, reps: int, setup=None) -> float:
         sync()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(spin)
         start.record()
         fn(arg)
         end.record()
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def launch_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds of one of `reps` back-to-back launches of fn().
+    The card spins for about 20 ms ahead of the first event, long enough
+    for the host to queue all of them, so that the span holds the kernels
+    and not the rate at which the host issues them."""
+    return cuda_ms(lambda _: [fn() for _ in range(reps)], 1,
+                   spin=40_000_000) / reps
 
 
 def random_legal(engine, states, rng):
@@ -499,19 +517,17 @@ def check_hbm_on_tree(mcts, params, tree, what, card, reps=3,
         t_plain = cuda_ms(run_p, 1, src.clone) if run_p else None
         t_bound, by = bound(*work) if work else (None, None)
         out[name] = (t_kernel, t_plain, t_bound, by)
-    step_reps = 20
     out["fused_step"] = (
-        cuda_ms(lambda _: [fused_step(mcts.engine, parents, acts, live)
-                           for _ in range(step_reps)], 1) / step_reps,
+        launch_ms(lambda: fused_step(mcts.engine, parents, acts, live)),
         cuda_ms(lambda _: step_plain(mcts.engine, parents, acts, live), 2),
         *bound(*fused_step_work(parents, B * V)))
     out["fused_step_legal"] = (
-        cuda_ms(lambda _: [step_legal(mcts.engine, parents, acts, live)
-                           for _ in range(step_reps)], 1) / step_reps,
+        launch_ms(lambda: step_legal(mcts.engine, parents, acts, live)),
         cuda_ms(lambda _: step_legal_plain(mcts.engine, parents, acts, live),
                 2),
         *bound(*step_legal_work(mcts.engine, parents, B * V)))
-    floors, chase = chain_floor(after_descend, lk, V)
+    down, up, chase = chain_floor(after_descend, lk, V)
+    floors = {"descend_wave_hbm": down, "expand_backup_wave_hbm": up}
     log(f"time large tier ({what}) on {card}: "
         + "; ".join(
             f"{n} {v[0]:.4f} ms"
@@ -530,7 +546,7 @@ def chain_floor(tree, leaves, V, reps=5):
     Descend: all V paths in sequence, downwards through `edge_child`: the
     chase's own time.  Expand+backup: the deepest single path plus V
     ordered adds, times the round trip of the chase up through `parent`.
-    Returns ({kernel: ms}, a description)."""
+    Returns (descend floor ms, expand+backup floor ms, a description)."""
     from tak_tpu_torch.mcts.tree_kernels_hbm import (
         child_chase,
         parent_chase,
@@ -549,13 +565,11 @@ def chain_floor(tree, leaves, V, reps=5):
     down_levels = int(depth.sum(1).max())
     up_rt = up_ms / int(up_levels.max())
     deepest = int(depth.max()) + 1
-    floors = {"descend_wave_hbm": down_ms,
-              "expand_backup_wave_hbm": (deepest + V) * up_rt}
     text = (f"chase down edge_child {down_ms:.4f} ms over {down_levels} "
             f"levels ({1e3 * down_ms / max(down_levels, 1):.3f} us each), "
             f"chase up parent {up_ms:.4f} ms over {int(up_levels.max())} "
             f"levels ({1e3 * up_rt:.3f} us each), deepest path {deepest}")
-    return floors, text
+    return down_ms, (deepest + V) * up_rt, text
 
 
 def check_hbm_cases(engine, dev, card, V=P_WAVE):
@@ -738,9 +752,7 @@ def check_single_step(engine, tree, card):
     compare_states(got, want, "fused_step on one row")
     if int(got.ply[0]) != int(root.ply[0]) + 1:
         fail("fused_step on one row did not step")
-    reps = 20
-    t_kernel = cuda_ms(lambda _: [fused_step(engine, root, act)
-                                  for _ in range(reps)], 1) / reps
+    t_kernel = launch_ms(lambda: fused_step(engine, root, act))
     t_plain = cuda_ms(lambda _: step_plain(engine, root, act), 2)
     t_bound, by = bound(*fused_step_work(root, 1))
     log(f"check fused_step on one row (Game.play): bitwise equal; kernel "
@@ -1087,10 +1099,8 @@ def check_rollout_kernels(engine, states, rng, card):
     if not bool((ok | (got[1] == 0)).all()) \
             or not bool((got[1] == legal.sum(1)).all()):
         fail("legal_sampler: an illegal action or a wrong legal count")
-    reps = 20
     out["legal_sampler"] = (
-        cuda_ms(lambda _: [legal_sampler(engine, states, seed=SEED + 7)
-                           for _ in range(reps)], 1) / reps,
+        launch_ms(lambda: legal_sampler(engine, states, seed=SEED + 7)),
         cuda_ms(lambda _: legal_sampler_plain(engine, states, seed=SEED + 7),
                 2),
         *bound(*sampler_work(engine, states, rows, False)))
@@ -1247,6 +1257,157 @@ def selfplay_phase(engine, eval_fn, params, dev, card, what, moves,
     return launches, move_lines, rate, first_tree[0]
 
 
+def selfplay_rows(engine, rng, dev):
+    """One self-play wave's leaf rows (ROWS varied 6x6 positions from
+    seeded random playouts, every 37th counted as a finished game) and
+    GAMES mid-game roots among them."""
+    import torch
+
+    from tak_tpu_torch.types import ONGOING
+
+    states = playout_states(engine, ROWS, 50, rng, dev)
+    result = states.result.clone()
+    result[::37] = 3  # some rows count as finished games: they must freeze
+    states = states.replace(result=result)
+    live_rows = torch.nonzero(states.result == ONGOING).flatten()[:GAMES]
+    return states, states[live_rows]
+
+
+def midsearch_tree(engine, eval_fn, params, roots):
+    """The pool-tier kernels' main-path tree: GAMES searches of the
+    reference self-play config from `roots`, grown by pipelined waves until
+    the 1,280-node pool is full in every game.  Returns (the MCTS, the
+    tree, the pending wave)."""
+    from tak_tpu_torch.mcts.search import MCTS
+    from tak_tpu_torch.mcts.tree_kernels import Pending
+
+    dev = roots.ply.device
+    scfg = make_actor(engine, eval_fn, dev, MOVES).search_config
+    if scfg.max_nodes != POOL or scfg.scan_chunk != 512:
+        fail(f"unexpected default search config {scfg}")
+    mcts = MCTS(engine, eval_fn, scfg)
+    tree = mcts.prepare_root(params, mcts.init_batch(roots))
+    pending = Pending.zeros(GAMES, WAVE, K, dev)
+    waves = 0
+    while waves < 12 and not (waves >= 2 and
+                              bool((tree.next_free == POOL).all())):
+        pending = mcts._wave_pipelined(params, tree, pending)
+        waves += 1
+    sync()
+    if not bool((tree.next_free == POOL).all()):
+        fail(f"pool not full after {waves} waves: {tree.next_free.tolist()}")
+    log(f"tree: {waves} waves, pool full ({POOL} nodes) in all {GAMES} "
+        "games")
+    return mcts, tree, pending
+
+
+def pool_chain_floors(tree, pending, checks):
+    """The chain floors of the pool-tier kernels on the mid-search tree
+    (`chain_floor`): #4 the chase down its own wave's paths, #3 the chase
+    up the pending leaves' paths on the tree before the flush, #2 both
+    (its backups, then its own descents).  Returns ({kernel: ms}, a
+    description)."""
+    d_tree, _, _, d_leaves = checks["descend_wave"]
+    m_tree, _, _, m_leaves = checks["backup_descend_wave"]
+    down4, _, text4 = chain_floor(d_tree, d_leaves, WAVE)
+    _, up3, text3 = chain_floor(tree, pending.leaves, WAVE)
+    down2, _, text2 = chain_floor(m_tree, m_leaves, WAVE)
+    floors = {"backup_descend_wave": up3 + down2, "descend_wave": down4,
+              "expand_backup_wave": up3}
+    return floors, (f"descend wave: {text4}; the pending leaves: {text3}; "
+                    f"merged wave's descents: {text2}")
+
+
+def check_pool_cases(engine, dev, card):
+    """Hold the pool-tier kernels against their plain versions, bitwise,
+    on the hand-built trees of `tree_cases` at the self-play shape (two
+    games, K=32, A=9,036, M=1,280): the recycling cases at V=256 and the
+    large tier's shared-prefix, repeated-leaf and deep-chain trees with
+    recycling on, at the largest wave their rows take.  Per case: a first
+    wave (descend alone, or the merged kernel on the case's wave in
+    flight), which must be the case it was built to be, then the merged
+    kernel on a seeded evaluation of its leaves, then the flush of the
+    next."""
+    import torch
+
+    from tak_tpu_torch.mcts import tree_cases
+    from tak_tpu_torch.mcts.search import SearchConfig
+    from tak_tpu_torch.mcts.tree import init_tree
+    from tak_tpu_torch.mcts.tree_kernels import (
+        Pending,
+        backup_descend_plain,
+        backup_descend_wave,
+        expand_backup_plain,
+        expand_backup_wave,
+    )
+
+    t0 = time.perf_counter()
+    cfg = SearchConfig()
+    kargs = dict(base=float(cfg.exploration_base),
+                 init=float(cfg.exploration_init), recycle=True)
+    B, A = 2, engine.num_actions
+    roots = engine.initial_batch(B, 4, dev)
+
+    def evaluation(leaves, seed):
+        return Pending(**{f: torch.as_tensor(a, device=dev) for f, a in
+                          tree_cases.hand_pending(leaves.cpu().numpy(), K, A,
+                                                  seed).items()}, valid=1)
+
+    def both(tree, run_k, run_p, what):
+        tk, tp = tree.clone(), tree.clone()
+        out_k, out_p = run_k(tk), run_p(tp)
+        sync()
+        compare_trees(tk, tp, what)
+        if out_k is not None and not all(bool((x == y).all())
+                                         for x, y in zip(out_k, out_p)):
+            fail(f"{what}: leaves/created differ")
+        return tk, out_k
+
+    seen = []
+    for case in (*tree_cases.POOL_CASES, "shared_prefix", "dups_twice",
+                 "one_leaf", "deep_chain"):
+        V = tree_cases.max_wave(case, K, WAVE)
+        what = f"pool-tier kernels, hand-built tree {case}, V={V}"
+        tree = init_tree(engine, roots, POOL, K)
+        fields = tree_cases.hand_tree(case, B, POOL, K, A, V, SEED)
+        in_flight = fields.pop("pending_leaves", None)
+        for f, a in fields.items():
+            getattr(tree, f).copy_(torch.as_tensor(a))
+        if in_flight is not None and (in_flight != -1).all():
+            pending = evaluation(torch.as_tensor(in_flight), SEED + 1)
+        else:
+            pending = Pending.zeros(B, V, K, dev)
+        tk, (lk, ck) = both(
+            tree, lambda t: backup_descend_wave(t, pending, **kargs),
+            lambda t: backup_descend_plain(t, pending, **kargs),
+            f"{what}, first wave")
+        try:
+            tree_cases.check_first_wave(case, tree.to_numpy(), tk.to_numpy(),
+                                        lk.cpu().numpy(), ck.cpu().numpy(),
+                                        in_flight)
+        except AssertionError as e:
+            fail(f"{what}: the first wave is not the case it was built to "
+                 f"be: {e!r}")
+        recycled = int(((tree.parent != -1) & (
+            (tk.parent != tree.parent)
+            | (tk.parent_action != tree.parent_action))).sum())
+        second = evaluation(lk, SEED + 2)
+        tk, (lk, _) = both(
+            tk, lambda t: backup_descend_wave(t, second, **kargs),
+            lambda t: backup_descend_plain(t, second, **kargs),
+            f"{what}, merged wave")
+        third = evaluation(lk, SEED + 3)
+        both(tk, lambda t: expand_backup_wave(t, third, recycle=True),
+             lambda t: expand_backup_plain(t, third, recycle=True),
+             f"{what}, flush")
+        seen.append(f"{case} V={V}: {int(ck.sum())} created, {recycled} "
+                    "slots recycled in the first wave")
+    log(f"check pool tier on hand-built trees (B={B} K={K} A={A} M={POOL}): "
+        "descend, merged backup+descend and flush bitwise equal to the plain "
+        "versions on " + "; ".join(seen)
+        + f" in {time.perf_counter() - t0:.1f} s on {card}")
+
+
 def make_actor(engine, eval_fn, dev, moves, **search_options):
     from tak_tpu_torch.mcts.search import SearchConfig
     from tak_tpu_torch.selfplay import SelfPlayActor, SelfPlayConfig
@@ -1275,7 +1436,6 @@ def main(do_profile: bool = False):
     card = card_line()
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.benchmark = True
-    ROWS = GAMES * WAVE            # fused-step rows per wave
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
@@ -1295,7 +1455,6 @@ def main(do_profile: bool = False):
     )
     from tak_tpu_torch.model.network import Network
     from tak_tpu_torch.model.resnet import NetConfig
-    from tak_tpu_torch.types import ONGOING
 
     # ---- 2. build --------------------------------------------------------
     t_build = kb.build(verbose=True)
@@ -1313,10 +1472,7 @@ def main(do_profile: bool = False):
     # ---- 3a. fused step against its plain version -------------------------
     # one wave's leaves: 8,192 varied rows, some finished, some disabled
     t0 = time.perf_counter()
-    states = playout_states(engine, ROWS, 50, rng, dev)
-    result = states.result.clone()
-    result[::37] = 3  # some rows count as finished games: they must freeze
-    states = states.replace(result=result)
+    states, roots = selfplay_rows(engine, rng, dev)
     acts = random_legal(engine, states, rng)
     enabled = torch.as_tensor(rng.random(ROWS) < 0.9, device=dev)
     got = fused_step(engine, states, acts, enabled)
@@ -1342,8 +1498,6 @@ def main(do_profile: bool = False):
 
     # the per-move instant-win scan: every (game, action) probe row of 32
     # mid-game roots, illegal pairs on the freeze path
-    live_rows = torch.nonzero(states.result == ONGOING).flatten()[:GAMES]
-    roots = states[live_rows]
     wst, wacts, wen = win_scan_rows(engine, roots)
     wins_rows = wacts.shape[0]
     got = fused_step(engine, wst, wacts, wen)
@@ -1364,25 +1518,11 @@ def main(do_profile: bool = False):
     def eval_fn(p, s):
         return net.policy_eval_states(p, s)
 
-    actor = make_actor(engine, eval_fn, dev, MOVES)
-    scfg = actor.search_config
-    if scfg.max_nodes != POOL or scfg.scan_chunk != 512:
-        fail(f"unexpected default search config {scfg}")
+    mcts, tree, pending = midsearch_tree(engine, eval_fn, params, roots)
+    scfg = mcts.config
     M = scfg.max_nodes
     kargs = dict(base=scfg.exploration_base, init=scfg.exploration_init,
                  recycle=True)
-    mcts = MCTS(engine, eval_fn, scfg)
-    tree = mcts.prepare_root(params, mcts.init_batch(roots))
-    pending = Pending.zeros(GAMES, WAVE, K, dev)
-    waves = 0
-    while waves < 12 and not (waves >= 2 and
-                              bool((tree.next_free == M).all())):
-        pending = mcts._wave_pipelined(params, tree, pending)
-        waves += 1
-    sync()
-    if not bool((tree.next_free == M).all()):
-        fail(f"pool not full after {waves} waves: {tree.next_free.tolist()}")
-    log(f"tree: {waves} waves, pool full ({M} nodes) in all {GAMES} games")
 
     checks = {}
     # merged backup + descend (valid=1)
@@ -1397,7 +1537,7 @@ def main(do_profile: bool = False):
                     | (tk.parent_action != tree.parent_action)).sum())
     if recycled == 0:
         fail("backup_descend_wave: no node was recycled")
-    checks["backup_descend_wave"] = (tk, True, True)
+    checks["backup_descend_wave"] = (tk, True, True, lk)
     log(f"check backup_descend_wave: bitwise equal, {recycled} slots "
         f"recycled, {int(ck.sum())} nodes created")
 
@@ -1410,7 +1550,7 @@ def main(do_profile: bool = False):
     compare_trees(tk, tp, "descend_wave")
     if not (bool((lk == lp).all()) and bool((ck == cp).all())):
         fail("descend_wave: leaves/created differ")
-    checks["descend_wave"] = (tk, True, False)
+    checks["descend_wave"] = (tk, True, False, lk)
     log("check descend_wave: bitwise equal")
 
     # expand + backup flush
@@ -1419,9 +1559,11 @@ def main(do_profile: bool = False):
     expand_backup_plain(tp, pending, recycle=True)
     sync()
     compare_trees(tk, tp, "expand_backup_wave")
-    checks["expand_backup_wave"] = (tk, False, True)
+    checks["expand_backup_wave"] = (tk, False, True, None)
     log(f"check expand_backup_wave: bitwise equal "
         f"(tree checks {time.perf_counter() - t0:.1f} s)")
+    pool_floors, pool_chase = pool_chain_floors(tree, pending, checks)
+    check_pool_cases(engine, dev, card)
 
     # ---- 3c. large-tier waves against their plain versions -------------------
     p_cfg = SearchConfig(num_sims=P_WAVE, wave_size=P_WAVE,
@@ -1507,16 +1649,13 @@ def main(do_profile: bool = False):
 
     # ---- 7. timing ---------------------------------------------------------
     rows = []
-    reps = 20
     st = states.clone()
-    t_kernel = cuda_ms(lambda _: [fused_step(engine, st, acts, enabled)
-                                  for _ in range(reps)], 1) / reps
+    t_kernel = launch_ms(lambda: fused_step(engine, st, acts, enabled))
     t_plain = cuda_ms(lambda _: step_plain(engine, st, acts, enabled), 3)
     t_bound, by = bound(*fused_step_work(st, ROWS))
     rows.append(("fused_step", t_kernel, t_plain, t_bound, by))
 
-    t_kernel = cuda_ms(lambda _: [step_legal(engine, st, acts, enabled)
-                                  for _ in range(reps)], 1) / reps
+    t_kernel = launch_ms(lambda: step_legal(engine, st, acts, enabled))
     t_plain = cuda_ms(lambda _: step_legal_plain(engine, st, acts, enabled), 3)
     t_bound, by = bound(*step_legal_work(engine, st, ROWS))
     rows.append(("fused_step_legal", t_kernel, t_plain, t_bound, by))
@@ -1531,7 +1670,7 @@ def main(do_profile: bool = False):
                  f"bound {wins_bound:.5f} ms ({wins_by})")
     log(f"time {wins_line} on {card}")
 
-    for name, (after, descend, backup) in checks.items():
+    for name, (after, descend, backup, _) in checks.items():
         def setup():
             return tree.clone()
 
@@ -1539,7 +1678,9 @@ def main(do_profile: bool = False):
             run_k = lambda t: backup_descend_wave(t, pending, **kargs)
             run_p = lambda t: backup_descend_plain(t, pending, **kargs)
         elif name == "descend_wave":
-            run_k = lambda t: descend_wave(t, WAVE, **kargs)
+            # the wrapper of `descend_wave` with its empty pending wave made
+            # beforehand: an allocation inside the span could wait
+            run_k = lambda t: backup_descend_wave(t, zero, **kargs)
             run_p = lambda t: backup_descend_plain(t, zero, **kargs)
         else:
             run_k = lambda t: expand_backup_wave(t, pending, recycle=True)
@@ -1550,6 +1691,9 @@ def main(do_profile: bool = False):
         ops = tree_ops(GAMES, WAVE, engine.num_actions, M, descend)
         t_bound, by = bound(nbytes, ops)
         rows.append((name, t_kernel, t_plain, t_bound, by))
+    log(f"time pool tier on {card}: chain floors "
+        + ", ".join(f"{n} {v:.4f} ms" for n, v in pool_floors.items())
+        + f"; {pool_chase}")
 
     for name in HBM_TIER:
         rows.append((name, *player_times[name]))
@@ -1610,10 +1754,12 @@ def main(do_profile: bool = False):
             "ms": t_kernel, "plain_ms": t_plain, "bound_ms": t_bound,
             "bound_by": by, "library_ms": None,
         }
+        # the tree waves are sequential by definition: the pointer chase
+        # along the wave's own paths, beside the throughput bound
         if name in HBM_TIER:
-            # sequential by definition: the pointer chase along this wave's
-            # own paths, beside the throughput bound
             entry["chain_floor_ms"] = player_times["chain_floor_ms"][name]
+        elif name in POOL_TIER:
+            entry["chain_floor_ms"] = pool_floors[name]
         if name in other_shapes:
             entry["other_shapes"] = other_shapes[name]
         kernels.append(entry)

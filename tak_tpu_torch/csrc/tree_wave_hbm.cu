@@ -58,19 +58,10 @@
 //     next_free, and the one thread that scored the chosen slot writes the
 //     mark from the value it loaded and links a created node.  Other K take
 //     the same code with a strided loop.
-//   expand+backup.  Phase 1: one thread per leaf walks its parent chain, all
-//     leaves at once (all of a level's loads go out whether wanted or
-//     not: a branch that few lanes take costs the whole warp a round trip),
-//     and records the path (edge index or root action) in shared memory.
-//     Then warps 1-7 install the rows of the new leaves (a leaf that occurs
-//     twice takes the first occurrence's row) while warp 0 runs phase 2: the
-//     leaves in order v = 0..V-1, the lanes applying one path's levels
-//     together, each with its three loads before its three stores, so the
-//     float adds into edge_w and root_w keep the leaf order and a path costs
-//     one round trip.  A path longer than PATH_CAP levels is finished by one
-//     lane, serially.  If a path passes through an unexpanded node (never in
-//     a tree the descend kernel grew), rows are installed in leaf order by
-//     warp 0 instead, so the result is the plain version's on any input.
+//   expand+backup.  `backup_wave` of tree_common.cuh (the pool tier runs it
+//     too): every leaf's path recorded in parallel, the new rows installed
+//     by the idle warps, then warp 0 applies the leaves in order, a path's
+//     levels together, each with its three loads before its three stores.
 //   Tried and dropped: prefetch.global.L1 of the chosen child's rows (and of
 //     the next leaf's lines in the backup) made both kernels slower; a table
 //     of c_puct and sqrtf by visit total in shared memory changed nothing
@@ -96,16 +87,9 @@
 #define ROOT_STAGE_MAX 14000       // legal root actions staged, 16 B each
 #define BACKUP_THREADS 256
 #define PATH_CAP 128               // levels of a path kept in shared memory
-#define PATH_STRIDE (PATH_CAP + 1) // odd: no bank conflicts either way
 #define BAR_PICK 1                 // named barriers (0 is __syncthreads)
 #define BAR_MARK 2
 #define BAR_WALK 3
-#define FULL 0xffffffffu
-
-struct Dims {
-  int B, M, K, A, V;
-  float base, init;
-};
 
 struct DescendTree {
   int* parent; int* parent_slot; int* parent_action;
@@ -116,67 +100,6 @@ struct DescendTree {
   const int* root_n; int* root_virt; const float* root_w;
   const int* n0; int* virt0; int* next_free;
 };
-
-struct BackupTree {
-  const int* parent; const int* parent_slot; const int* parent_action;
-  unsigned char* expanded;
-  int* edge_action; float* edge_prior; int* edge_child;
-  int* edge_n; int* edge_virt; float* edge_w;
-  int* root_n; int* root_virt; float* root_w;
-  int* n0; int* virt0;
-};
-
-struct PendingWave {
-  const int* leaves; const float* topk_vals; const int* topk_aidx;
-  const int* results; const float* values; const int* to_move;
-};
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-// Order-preserving map of a score to an unsigned key (-0 counts as +0, as a
-// float comparison counts it).
-__device__ __forceinline__ unsigned score_key(float s) {
-  const unsigned u = __float_as_uint(s + 0.0f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float q_term(int n, int virt, float w) {
-  const float tot = (float)(n + virt);
-  return tot > 0.0f ? (w - (float)virt) / fmaxf(tot, 1.0f) : 0.0f;
-}
-
-// One edge slot's score; keeps the last maximum of the slots seen so far.
-// An unvisited slot (most of a row) needs no division: q is 0 and u's
-// denominator is 1.  An empty slot's numerator is 1 and not the 0 its prior
-// would give: written so, the level measured 12% faster on the card.
-struct Best {
-  float s; int slot, child, action, n, virt;
-};
-
-__device__ __forceinline__ void score_slot(Best& b, int k, int ea, int ec,
-                                           int en, int ev, float ep, float ew,
-                                           float cpe, float sqe) {
-  const bool used = ea != NONE;
-  const float num = used ? cpe * ep * sqe : 1.0f;
-  float sc;
-  if (en + ev != 0) {
-    const float tot = (float)(en + ev);
-    const float q = tot > 0.0f ? (ew - (float)ev) / fmaxf(tot, 1.0f) : 0.0f;
-    sc = q + num / (1.0f + tot);
-  } else {
-    sc = 0.0f + num;
-  }
-  if (!used) sc = -INFINITY;
-  if (sc >= b.s) {
-    b.s = sc; b.slot = k; b.child = ec; b.action = ea; b.n = en; b.virt = ev;
-  }
-}
 
 // `cap` is the number of legal root actions the dynamic shared memory can
 // stage.
@@ -413,176 +336,10 @@ descend_hbm_kernel(DescendTree t, Dims p, int cap, int* leaves_out,
   }
 }
 
-// One level of a backup: the read-modify-writes of an edge or a root action,
-// the three loads first so that they share one round trip.
-__device__ __forceinline__ void apply_edge(int* n, int* virt, float* w,
-                                           size_t e, float add) {
-  const int en = n[e], ev = virt[e];
-  const float ew = w[e];
-  n[e] = en + 1;
-  virt[e] = ev - 1;
-  w[e] = ew + add;
-}
-
 __global__ void __launch_bounds__(BACKUP_THREADS)
 expand_backup_hbm_kernel(BackupTree t, PendingWave pd, Dims p) {
-  // per leaf: PATH_STRIDE path codes, then length, node to go on from,
-  // root visits seen, leaf, install flags (candidate, first), value
   extern __shared__ int sh[];
-  int* path = sh;
-  int* s_len = path + (size_t)p.V * PATH_STRIDE;
-  int* s_next = s_len + p.V;
-  int* s_roots = s_next + p.V;
-  int* s_leaf = s_roots + p.V;
-  int* s_cand = s_leaf + p.V;
-  int* s_first = s_cand + p.V;
-  float* s_val = (float*)(s_first + p.V);
-  __shared__ int s_odd;   // a path passes through an unexpanded node
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = blockIdx.x;
-  const size_t m = (size_t)g * p.M, mk = m * p.K, ao = (size_t)g * p.A;
-  const int* parent = t.parent + m;
-  const int* parent_slot = t.parent_slot + m;
-  const int* parent_action = t.parent_action + m;
-  unsigned char* expanded = t.expanded + m;
-  int* edge_action = t.edge_action + mk;
-  float* edge_prior = t.edge_prior + mk;
-  int* edge_child = t.edge_child + mk;
-  int* edge_n = t.edge_n + mk;
-  int* edge_virt = t.edge_virt + mk;
-  float* edge_w = t.edge_w + mk;
-  int* root_n = t.root_n + ao;
-  int* root_virt = t.root_virt + ao;
-  float* root_w = t.root_w + ao;
-  const size_t pg = (size_t)g * p.V;
-  // expansion: slot k of leaf v's top-K prior row
-  auto install = [&](int v, int k) {
-    const size_t dst = (size_t)s_leaf[v] * p.K + k;
-    const size_t src = (pg + v) * p.K + k;
-    const float va = pd.topk_vals[src];
-    const bool okm = va >= 0.0f;
-    edge_action[dst] = okm ? pd.topk_aidx[src] : NONE;
-    edge_child[dst] = NONE;
-    edge_prior[dst] = okm ? va : 0.0f;
-    edge_n[dst] = 0;
-    edge_virt[dst] = 0;
-    edge_w[dst] = 0.0f;
-    if (k == 0) expanded[s_leaf[v]] = 1;
-  };
-
-  if (tid == 0) s_odd = 0;
-  __syncthreads();
-  // ---- phase 1: every leaf's walk to the root, all at once ----
-  for (int v = tid; v < p.V; v += BACKUP_THREADS) {
-    const int leaf = pd.leaves[pg + v];
-    const int res = pd.results[pg + v];
-    const int winner = (res == 1 || res == 3) ? 0
-                       : ((res == 2 || res == 4) ? 1 : -1);
-    const float term = winner < 0 ? 0.0f
-                       : (pd.to_move[pg + v] == winner ? 1.0f : -1.0f);
-    s_val[v] = res != ONGOING ? term : pd.values[pg + v];
-    s_leaf[v] = leaf;
-    s_cand[v] = res == ONGOING && leaf != 0 && expanded[leaf] == 0;
-    int* code = path + (size_t)v * PATH_STRIDE;
-    int cur = leaf, d = 0, roots = 0, odd = 0;
-    while (cur != NONE && d < PATH_CAP) {
-      // all of a level's loads at once, wanted or not: a branch that only
-      // some lanes take would cost the warp its own round trip
-      const int par = parent[cur], s = parent_slot[cur];
-      const int a = parent_action[cur];
-      // every node above the leaf should be expanded (its row is touched)
-      if (d > 0) odd |= expanded[cur] == 0;
-      int c = NONE;   // a level that adds nothing
-      if (par == 0 && s == NONE) {
-        if (a >= 0 && a < p.A) c = -2 - a;
-      } else if (par != NONE && s >= 0 && s < p.K) {
-        c = par * p.K + s;
-      }
-      code[d] = c;
-      roots += cur == 0;
-      cur = par;
-      ++d;
-    }
-    s_len[v] = d;
-    s_next[v] = cur;
-    s_roots[v] = roots;
-    // a tail past PATH_CAP is not looked at: install in leaf order then
-    if (odd || cur != NONE) s_odd = 1;
-  }
-  __syncthreads();
-  // a leaf that occurs twice takes the first occurrence's row
-  for (int v = tid; v < p.V; v += BACKUP_THREADS) {
-    int first = s_cand[v];
-    for (int u = 0; u < v && first; ++u)
-      if (s_leaf[u] == s_leaf[v] && s_cand[u]) first = 0;
-    s_first[v] = first;
-  }
-  __syncthreads();
-  const bool in_order = s_odd != 0;
-
-  if (warp != 0) {
-    // ---- the new leaves' rows, all at once: no backup of this wave
-    // touches them (every node on a path is expanded) ----
-    if (in_order) return;
-    const int total = p.V * p.K;
-#pragma unroll 4
-    for (int i = tid - 32; i < total; i += BACKUP_THREADS - 32) {
-      const int v = i / p.K;
-      if (s_first[v]) install(v, i - v * p.K);
-    }
-    return;
-  }
-
-  // ---- phase 2: warp 0 applies the backups in leaf order ----
-  int n0 = t.n0[g], virt0 = t.virt0[g];
-  for (int v = 0; v < p.V; ++v) {
-    if (in_order && s_first[v]) {
-      for (int k = lane; k < p.K; k += 32) install(v, k);
-      __syncwarp();
-    }
-    const float val = s_val[v];
-    const int len = s_len[v];
-    const int* code = path + (size_t)v * PATH_STRIDE;
-    // the edges of one path are all different: its levels go together
-    for (int d = lane; d < len; d += 32) {
-      const int c = code[d];
-      const float add = ((d & 1) ? 1.0f : -1.0f) * val;
-      // an edge and a root action take the same instructions, so a path's
-      // lanes stay together through one round trip
-      const bool edge = c >= 0;
-      if (edge || c <= -2)
-        apply_edge(edge ? edge_n : root_n, edge ? edge_virt : root_virt,
-                   edge ? edge_w : root_w, (size_t)(edge ? c : -2 - c), add);
-    }
-    n0 += s_roots[v];
-    virt0 -= s_roots[v];
-    __syncwarp();   // leaf v's levels are applied before anything later
-    if (s_next[v] != NONE) {
-      // ---- the rest of a path longer than PATH_CAP: one lane, serially ----
-      if (lane == 0) {
-        float sign = (len & 1) ? 1.0f : -1.0f;
-        int cur = s_next[v];
-        while (cur != NONE) {
-          const int par = parent[cur], s = parent_slot[cur];
-          const float add = sign * val;
-          if (par == 0 && s == NONE) {
-            const int a = parent_action[cur];
-            if (a >= 0 && a < p.A)
-              apply_edge(root_n, root_virt, root_w, (size_t)a, add);
-          } else if (par != NONE && s >= 0 && s < p.K) {
-            apply_edge(edge_n, edge_virt, edge_w, (size_t)par * p.K + s, add);
-          }
-          if (cur == 0) { n0 += 1; virt0 -= 1; }
-          cur = par;
-          sign = -sign;
-        }
-      }
-      n0 = __shfl_sync(FULL, n0, 0);
-      virt0 = __shfl_sync(FULL, virt0, 0);
-      __syncwarp();
-    }
-  }
-  if (lane == 0) { t.n0[g] = n0; t.virt0[g] = virt0; }
+  backup_wave<PATH_CAP>(t, pd, p, blockIdx.x, sh);
 }
 
 // One thread per game follows the parent links of the wave's leaves, leaf
@@ -672,13 +429,14 @@ extern "C" int tak_expand_backup_wave_hbm(
   t.root_n = (int*)root_n; t.root_virt = (int*)root_virt;
   t.root_w = (float*)root_w;
   t.n0 = (int*)n0; t.virt0 = (int*)virt0;
+  t.node_virt = nullptr;
   PendingWave pd;
   pd.leaves = (const int*)leaves; pd.topk_vals = (const float*)topk_vals;
   pd.topk_aidx = (const int*)topk_aidx; pd.results = (const int*)results;
   pd.values = (const float*)values; pd.to_move = (const int*)to_move;
   const Dims p = {B, M, K, A, V, 0.0f, 0.0f};
-  // V x (PATH_STRIDE + 7) words: the wrapper keeps V within MAX_WAVE
-  const size_t bytes = sizeof(int) * (size_t)V * (PATH_STRIDE + 7);
+  // the wrapper keeps V within MAX_WAVE
+  const size_t bytes = backup_smem_bytes<PATH_CAP>(V);
   static size_t sized = 48 * 1024;
   if (bytes > sized) {
     const cudaError_t err = cudaFuncSetAttribute(

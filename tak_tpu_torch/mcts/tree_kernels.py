@@ -21,17 +21,18 @@ is the create's own parent.  Node indices are allocated in the Pallas
 kernels' order, so trees match field for field.
 
 CUDA design (`csrc/tree_wave.cu`): one thread block per game, because
-descents within a game are sequential by definition.  The block computes
-the victim pair and the root PUCT pick over all A actions (a block-wide
-last-max argmax); warp 0 then walks the tree (a warp-wide argmax over
-the K edge slots) and does every scalar update; the backups run in warp
-0.  What bounds it on the H100: neither bytes nor operations but the
-sequential dependency: each descent is a chain of block-wide reductions
-and dependent global loads, and only B=32 blocks exist, so 100 of the
-132 SMs idle.  The trees stay in global memory (the per-game edge tier,
-5*1280*32*4 B, and the root tier, 6*9036*4 B, exceed shared memory),
-and all 32 games (~33 MB) stay resident in the 50 MB L2.  The kernels
-update the tree tensors in place, so a wave moves no whole-tree copy.
+descents within a game are sequential by definition; the tree stays in
+global memory (all 32 games, ~33 MB, stay resident in the 50 MB L2) and is
+updated in place.  What a descent reads again and again lives in shared
+memory for the whole launch: the legal root actions (staged once, 32 B
+each, the root tier's other actions are never picked) and, with
+recycling, a mirror of the node tier (28 B a node).  Warp 0 walks (a slot
+per lane at K=32); meanwhile warps 8-15 score the next descent's root pick
+and warps 1-7 find this descent's victim pair in the mirror, so neither
+is on the walk's path.  The backups record every leaf's path in parallel,
+install the new rows with all warps and apply every edge at once, its adds
+in leaf order.  What bounds it on the H100: the dependent round trips of
+the walk, not bytes or operations (PERF.md has the chain floor).
 
 The plain PyTorch versions below are batched over games and loop over
 the V descents and the tree walk; they reproduce the Pallas kernels'
@@ -343,6 +344,9 @@ def expand_backup_plain(tree: Tree, pending: Pending, *, recycle: bool):
 # Wrappers: CUDA tensors launch the kernel, CPU tensors run the plain version
 # ---------------------------------------------------------------------------
 
+MAX_WAVE = 1024              # leaves whose recorded paths fit shared memory
+MAX_RECYCLE_NODES = 8192     # pool nodes whose mirrors fit shared memory
+
 _TREE_ARGS = (
     ("parent", torch.int32, "M"), ("parent_slot", torch.int32, "M"),
     ("parent_action", torch.int32, "M"), ("expanded", torch.bool, "M"),
@@ -375,15 +379,29 @@ def _check(obj, spec, dims, dev, what):
             raise ValueError(f"{what}: {name} must be contiguous on {dev}")
 
 
+def _dims(tree: Tree, V: int, recycle: bool) -> dict:
+    """The kernels' dimensions; raises on a shape they do not take."""
+    B, M, K = tree.edge_n.shape
+    if K > 1024:
+        raise ValueError(f"max_children {K} above the kernel's 1024")
+    if M * K >= 2 ** 31:
+        raise ValueError(f"{M} nodes x {K} children: an edge index does not "
+                         "fit the 32-bit path codes of the backup")
+    if not 1 <= V <= MAX_WAVE:
+        raise ValueError(f"wave size {V} outside 1..{MAX_WAVE}: the backup "
+                         "keeps every leaf's path in shared memory")
+    if recycle and M > MAX_RECYCLE_NODES:
+        raise ValueError(f"a recycling pool of {M} nodes above the kernel's "
+                         f"{MAX_RECYCLE_NODES}: it mirrors the node tier in "
+                         "shared memory")
+    return {"B": B, "M": M, "K": K, "A": tree.root_n.shape[1], "V": V}
+
+
 def _launch(entry, tree: Tree, pending: Pending, *, base, init, recycle,
             valid, descend):
     dev = tree.n0.device
-    B, M, K = tree.edge_n.shape
-    A = tree.root_n.shape[1]
-    V = pending.leaves.shape[1]
-    if K > 1024:
-        raise ValueError(f"max_children {K} above the kernel's 1024")
-    dims = {"B": B, "M": M, "K": K, "A": A, "V": V}
+    dims = _dims(tree, pending.leaves.shape[1], recycle)
+    B, M, K, A, V = (dims[c] for c in "BMKAV")
     _check(tree, _TREE_ARGS, dims, dev, entry)
     _check(pending, _PENDING_ARGS, dims, dev, entry)
     leaves = torch.empty((B, V), dtype=torch.int32, device=dev)
