@@ -9,7 +9,14 @@ Phases, each fatal on failure:
   3. hold each kernel against its plain PyTorch version on the card, at the
      main path's shapes, bitwise:
        * fused step on 8,192 rows of varied 6x6 positions (seeded random
-         playouts), with disabled rows and finished games; the fused step
+         playouts), with disabled rows and finished games; at every size
+         3-8 the fused step and the env rollout (4 steps, given words and
+         seeded) on the hand-built cases of `tak_tpu_torch.engine.env_cases`
+         (stacks across a word boundary, full carries to the edge, a
+         capstone smash, a spread that completes both roads, a snake road,
+         the last piece of a reserve, a full board, the reversible draw,
+         plies 0-1, disabled and finished rows) and on 1,024 playout rows
+         (the rollout 8 steps with given words); the fused step
          with legal bits on the same rows, on 1,024 playout rows at 5x5 and
          8x8, and (phase 5) on a Player wave's 64 leaf rows: states and
          packed words, and the words unpacked against `Engine.legal_mask`;
@@ -67,7 +74,9 @@ Phases, each fatal on failure:
   7. time each kernel (CUDA events; a kernel launched twenty times back to
      back behind a spin long enough for the host to queue them all) and
      its plain version at the main paths' shapes, with the least time the
-     card could take (bound); for the five tree waves also the chain
+     card could take (bound), and the launch floor (`zero_()` on 64 int32
+     timed the same way) beside the fused step's small shapes; for the
+     five tree waves also the chain
      floor: a one-thread pointer chase along the wave's own paths (down
      through `edge_child` for the descents, up through `parent` for the
      backups), since descents that see each other's marks cannot approach
@@ -121,6 +130,9 @@ R_ENVS = 8192
 R_STEPS = 64
 R_LAUNCHES = 8
 FUSED_MOVES = 2                # searched moves with fused_leaf_legal=True
+CASE_STEPS = 4                 # rollout steps from the hand-built env cases
+SIZE_ROWS = 1024               # playout rows per size for #1 and #7
+SIZE_STEPS = 8
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_OPS_PER_S = 67e12          # H100 SXM, outside the tensor cores
@@ -202,6 +214,27 @@ def launch_ms(fn, reps: int = 20) -> float:
     and not the rate at which the host issues them."""
     return cuda_ms(lambda _: [fn() for _ in range(reps)], 1,
                    spin=40_000_000) / reps
+
+
+def launch_floor_ms(dev) -> float:
+    """What any launch costs on this card: `launch_ms` of `zero_()` on a
+    64-element int32 tensor.  The fused step's small shapes (the Player's
+    64 leaf rows, one row) are judged against it."""
+    import torch
+
+    z = torch.zeros(64, dtype=torch.int32, device=dev)
+    return launch_ms(lambda: z.zero_())
+
+
+def u32_words(rng, shape, dev):
+    """Random words (u32 values in an int64 tensor) for the rollout's and
+    the sampler's given-words mode."""
+    import numpy as np
+    import torch
+
+    return torch.as_tensor(
+        rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.int64),
+        device=dev)
 
 
 def random_legal(engine, states, rng):
@@ -1068,7 +1101,6 @@ def check_rollout_kernels(engine, states, rng, card):
     rows x R_STEPS steps, from `states`' first R_ENVS rows) against their
     plain versions, bitwise, with given words and with a seed; time them.
     Returns {kernel: (ms, plain_ms, bound_ms, bound_by)}."""
-    import numpy as np
     import torch
 
     from tak_tpu_torch.engine.env_rollout import (
@@ -1082,9 +1114,7 @@ def check_rollout_kernels(engine, states, rng, card):
     rows = states.ply.shape[0]
 
     def words(shape):
-        return torch.as_tensor(
-            rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.int64),
-            device=dev)
+        return u32_words(rng, shape, dev)
 
     out = {}
     bits = words(rows)
@@ -1135,12 +1165,63 @@ def check_rollout_kernels(engine, states, rng, card):
     return out
 
 
+def check_env_sizes(dev, rng, card):
+    """Hold the fused step (#1) and the env rollout (#7) against their plain
+    versions, bitwise, at every size 3-8 (one or two squares a lane, one to
+    four stack words): on the hand-built cases of `env_cases` (the step
+    with the cases' actions and enabled rows; the rollout CASE_STEPS steps
+    from the cases' positions, with given words and seeded) and on
+    SIZE_ROWS playout rows (the step with random legal actions, some rows
+    disabled; the rollout SIZE_STEPS steps with given words)."""
+    import torch
+
+    from tak_tpu_torch.engine import env_cases
+    from tak_tpu_torch.engine.core import get_engine
+    from tak_tpu_torch.engine.env_rollout import env_rollout, env_rollout_plain
+    from tak_tpu_torch.engine.fused_env import fused_step, step_plain
+
+    t0 = time.perf_counter()
+    for n in env_cases.SIZES:
+        engine = get_engine(n)
+        names, fields, acts, enabled, _ = env_cases.batch(n)
+        st = env_cases.as_state(fields, dev)
+        a = torch.as_tensor(acts, device=dev)
+        en = torch.as_tensor(enabled, device=dev)
+        compare_states(fused_step(engine, st, a, en),
+                       step_plain(engine, st, a, en),
+                       f"fused_step ({n}x{n} env cases)")
+        for kw, how in ((dict(bits=u32_words(rng, (CASE_STEPS, len(names)),
+                                             dev)), "given words"),
+                        (dict(seed=SEED + n), "seeded")):
+            compare_states(env_rollout(engine, st, CASE_STEPS, **kw),
+                           env_rollout_plain(engine, st, CASE_STEPS, **kw),
+                           f"env_rollout ({n}x{n} env cases, {how})")
+        play = playout_states(engine, SIZE_ROWS, 10 * n, rng, dev)
+        pa = random_legal(engine, play, rng)
+        pe = torch.as_tensor(rng.random(SIZE_ROWS) < 0.9, device=dev)
+        compare_states(fused_step(engine, play, pa, pe),
+                       step_plain(engine, play, pa, pe),
+                       f"fused_step ({n}x{n} playout rows)")
+        bits = u32_words(rng, (SIZE_STEPS, SIZE_ROWS), dev)
+        compare_states(env_rollout(engine, play, SIZE_STEPS, bits=bits),
+                       env_rollout_plain(engine, play, SIZE_STEPS, bits=bits),
+                       f"env_rollout ({n}x{n} playout rows)")
+        sync()
+        log(f"check {n}x{n}: fused_step and env_rollout bitwise equal on "
+            f"{len(set(names))} hand-built env cases ({len(names)} rows; "
+            f"the rollout {CASE_STEPS} steps, given words and seeded) and on "
+            f"{SIZE_ROWS} playout rows (max height "
+            f"{int(play.heights.max())}; the rollout {SIZE_STEPS} steps)")
+    log(f"check env kernels at sizes 3-8 on {card}: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def env_rollout_phase(engine, dev, card):
     """The env rollout as a user drives it (the JAX package's
     bench.py:70-81): `Engine.env_rollout_fn(R_STEPS)` on R_ENVS fresh games
     at half-komi 4, one warm-up launch, R_LAUNCHES timed launches with
     seeds 1.., one synchronization.  Returns (launch counts, the result
-    line with the env steps per second)."""
+    line, the env steps per second)."""
     import torch
 
     from tak_tpu_torch.engine.env_rollout import legal_sampler
@@ -1183,7 +1264,7 @@ def env_rollout_phase(engine, dev, card):
             f"{float(states.ply.float().mean()):.1f}, "
             f"{float(total.float().mean()):.1f} legal actions per row")
     log(line + f"; launches {launches} on {card}")
-    return launches, line
+    return launches, line, rate
 
 
 def selfplay_phase(engine, eval_fn, params, dev, card, what, moves,
@@ -1509,6 +1590,8 @@ def main(do_profile: bool = False):
         f"equal ({stepped} legal probes stepped, {wins_rows - stepped} "
         "frozen)")
     del got, want
+    # the fused step and the env rollout at every size 3-8
+    check_env_sizes(dev, rng, card)
 
     # ---- 3b. tree waves against their plain versions -----------------------
     t0 = time.perf_counter()
@@ -1638,7 +1721,7 @@ def main(do_profile: bool = False):
     log(f"{options_line} on {card}")
 
     # ---- 6b. the env rollout path ---------------------------------------------
-    r_launches, r_line = env_rollout_phase(engine, dev, card)
+    r_launches, r_line, _ = env_rollout_phase(engine, dev, card)
     for name in ("env_rollout", "legal_sampler"):
         if r_launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the env rollout path")
@@ -1669,6 +1752,11 @@ def main(do_profile: bool = False):
                  f"kernel {t_wins:.4f} ms, plain {t_wins_plain:.3f} ms, "
                  f"bound {wins_bound:.5f} ms ({wins_by})")
     log(f"time {wins_line} on {card}")
+    floor = launch_floor_ms(dev)
+    log(f"time fused_step at small shapes: the Player's {P_WAVE} leaf rows "
+        f"{player_times['fused_step'][0]:.4f} ms, one row {one_row[0]:.4f} "
+        f"ms, against a launch floor of {floor:.4f} ms (zero_() on 64 "
+        f"int32) on {card}")
 
     for name, (after, descend, backup, _) in checks.items():
         def setup():
@@ -1727,9 +1815,12 @@ def main(do_profile: bool = False):
     # large-tier waves on the check tree grown by the plain versions, the
     # fused step on the Player path's 64 leaf rows and on one row
     other_shapes = {
-        "fused_step": {f"player wave, {P_WAVE} rows":
+        "fused_step": {f"win scan, {wins_rows} rows":
+                       times((t_wins, t_wins_plain, wins_bound, wins_by)),
+                       f"player wave, {P_WAVE} rows":
                        times(player_times["fused_step"]),
-                       "one row": times(one_row)},
+                       "one row": times(one_row),
+                       "launch_floor_ms": floor},
         "fused_step_legal": {f"player wave, {P_WAVE} rows":
                              times(player_times["fused_step_legal"])},
         **{name: {"check tree": hbm_times(hbm_check, name)}

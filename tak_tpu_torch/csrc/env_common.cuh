@@ -1,5 +1,7 @@
-// Device code shared by the env kernels (fused_step.cu, fused_step_legal.cu,
-// env_rollout.cu): one Tak row held by one thread.
+// Device code of the env kernels that hold one Tak row in one thread (the
+// step with legal bits of fused_step_legal.cu and the legal sampler of
+// env_rollout.cu), and what the warp-per-game kernels of env_warp.cuh share
+// with them (the state's layout, the pattern class tables, Philox).
 //
 //   Row<N, W>          the state of one game in registers / local memory
 //   load_row/store_row batch-first GameState fields <-> Row
@@ -425,20 +427,6 @@ __device__ __forceinline__ uint32_t philox_bits(uint32_t k0, uint32_t k1,
     k1 += 0xBB67AE85u;
   }
   return c0;
-}
-
-// Rows finished now restart from the initial position; komi is kept.
-template <int N, int W>
-__device__ __forceinline__ void reset_row(Row<N, W>& s, int start_stones,
-                                          int start_caps) {
-  for (int q = 0; q < N * N; ++q) {
-    for (int j = 0; j < W; ++j) s.words[q][j] = 0u;
-    s.heights[q] = 0;
-    s.tops[q] = EMPTY;
-  }
-  s.to_move = 0; s.ply = 0; s.rev = 0; s.result = ONGOING;
-  s.stones[0] = s.stones[1] = start_stones;
-  s.caps[0] = s.caps[1] = start_caps;
 }
 
 // Sizes 3-8 with their stack words: ceil(2 * (stones + caps) / 32).

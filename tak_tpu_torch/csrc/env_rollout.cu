@@ -7,22 +7,29 @@
 //
 //   tak_legal_sampler: per row, the packed legal bits of the state, then one
 //     uniform legal action (r = bits % max(total, 1), unsigned, over the
-//     reference's group order) and the legal count.
-//   tak_env_rollout: per row, T times (legal bits -> sample -> step -> result
-//     -> freeze rows that were finished on entry -> reset rows finished now to
-//     the start position, komi kept), the state held by the thread for the
-//     whole rollout: ONE launch, one read and one write of the state.
+//     reference's group order) and the legal count.  One thread per row, 64
+//     threads per block (the thread-per-row code of env_common.cuh).
+//   tak_env_rollout: per row, T times (legal classes -> sample -> step ->
+//     result -> freeze rows that were finished on entry -> reset rows
+//     finished now to the start position, komi kept), the state held in
+//     registers for the whole rollout: ONE launch, one read and one write of
+//     the state.  One warp per row, a square per lane (env_warp.cuh): the
+//     legal classes come from blocker and wall bitboards made by ballots,
+//     the sample from per-group warp sums and a warp scan, the step and the
+//     result as in fused_step.cu.
 //
 // Random bits: either given ([R] / [T, R] int64 carrying u32 values) or
 // Philox4x32-10 with key = seed and counter = (row, step), written out here
-// so that the plain version computes the same words.
+// so that the plain version computes the same words; every lane of a row's
+// warp runs the generator (registers only, no shuffle).
 //
-// One thread per row; 64 threads per block so that 8,192 rows make 128
-// blocks.  What bounds the rollout: operations (T steps of integer, branchy
-// work per row against 1.8 KB moved); the row lives in local memory, since
-// the squares are indexed by data.
+// What bounds the rollout: operations (T steps of integer, branchy work per
+// row against 1.8 KB moved).  A warp per row turns each step's serial walks
+// over the squares into a few dozen warp-wide instructions, and 8,192 rows
+// are 1,024 blocks of 8 warps: enough warps on every SM to hide the latency
+// of the shuffles and ballots of each one's chain.
 
-#include "env_common.cuh"
+#include "env_warp.cuh"
 
 template <int N, int W>
 __global__ void legal_sampler_kernel(StateIn in, const int* tables,
@@ -52,26 +59,36 @@ __global__ void env_rollout_kernel(StateIn in, StateOut out, const int* tables,
                                    int start_stones, int start_caps,
                                    int rows) {
   __shared__ uint32_t tab[LegalDims<N>::TABLE_WORDS];
+  __shared__ uint32_t ctab[CountDims<N>::WORDS];
   stage_tables<N>(tables, tab);
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  Row<N, W> s;
-  load_row<N, W>(in, r, s);
-  LegalRow<N> g;
+  stage_counts<N>(tab, ctab);
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (r >= rows) return;                     // the whole warp: r is its row
+  WarpGame<N, W> g;
+  warp_load<N, W>(in, r, lane, g);
+  uint32_t words = 0u;   // lane l: the random word of step (t & ~31) + l
   for (int t = 0; t < steps; ++t) {
-    if (s.result == ONGOING) {     // a row finished on entry stays frozen
-      legal_prepare<N, W>(s, g);
-      const uint32_t word =
-          use_seed ? philox_bits(k0, k1, (uint32_t)r, (uint32_t)t)
-                   : (uint32_t)bits[(size_t)t * rows + r];
-      int a, tot;
-      sample_action<N>(g, tab, word, a, tot);
-      step_row<N, W>(s, a);
-      s.result = result_of<N, W>(s);
+    if ((t & 31) == 0) {
+      const int tl = t + lane;
+      if (use_seed)
+        words = philox_bits(k0, k1, (uint32_t)r, (uint32_t)tl);
+      else if (tl < steps)
+        words = (uint32_t)bits[(size_t)tl * rows + r];
     }
-    if (s.result != ONGOING) reset_row<N, W>(s, start_stones, start_caps);
+    if (g.result == ONGOING) {     // a row finished on entry stays frozen
+      WarpLegal<WarpGame<N, W>::S> legal;
+      warp_legal<N, W>(g, lane, legal);
+      const uint32_t word = __shfl_sync(FULL_WARP, words, t & 31);
+      int a, tot;
+      warp_sample<N, WarpGame<N, W>::S>(legal, tab, ctab, word, lane, a,
+                                        tot);
+      warp_step<N, W>(g, a, lane);
+      g.result = warp_result<N, W>(g, lane);
+    }
+    if (g.result != ONGOING) warp_reset<N, W>(g, start_stones, start_caps);
   }
-  store_row<N, W>(out, r, s);
+  warp_store<N, W>(out, r, lane, g);
 }
 
 extern "C" int tak_legal_sampler(
@@ -107,10 +124,10 @@ extern "C" int tak_env_rollout(
   const StateIn in = state_in(ins);
   const StateOut out = state_out(outs);
   cudaStream_t s = (cudaStream_t)stream;
-  const int threads = 64;
-  const int blocks = (rows + threads - 1) / threads;
+  const int warps = warps_per_block(rows);
+  const int blocks = (rows + warps - 1) / warps;
 #define CALL(N_, W_)                                                      \
-  env_rollout_kernel<N_, W_><<<blocks, threads, 0, s>>>(                  \
+  env_rollout_kernel<N_, W_><<<blocks, 32 * warps, 0, s>>>(               \
       in, out, (const int*)tables, (const long long*)bits, use_seed, k0,  \
       k1, steps, start_stones, start_caps, rows)
   TAK_DISPATCH_SIZE(n, CALL)

@@ -7,37 +7,41 @@
 //
 // Layout: the GameState fields in their batch-first layout (stacks int64
 // [R, n2, W] carrying u32 values, heights/tops int32 [R, n2], per-row int32
-// scalars, stones/caps int32 [R, 2]); one thread per row.  Roads are a flood
-// fill on two 64-bit bitboards (bit q = square q) in registers.
+// scalars, stones/caps int32 [R, 2]).  One warp per row, a square per lane
+// (env_warp.cuh): the row's loads are coalesced across the lanes, a spread's
+// squares insert their drops in parallel, and the road flood fill runs on
+// bitboards made by ballots, its four planes on four lane groups.
 //
 // What bounds it: bytes (about 0.9 KB read and written per 6x6 row for a few
-// hundred integer operations).  The whole step, the result and the freeze run
-// in one pass so every byte moves once.  The step and the result are the
-// shared device code of env_common.cuh (also run by fused_step_legal.cu and
-// env_rollout.cu).
+// hundred integer operations).  The whole step, the result and the freeze
+// run in one pass so every byte moves once.  A row's time is one chain of a
+// load, a few shuffles and ballots, the fill's iterations and a store; with
+// a warp per row, 8,192 rows are 1,024 blocks of 8 warps over the 132 SMs,
+// and 64 rows are 64 blocks of one warp.
 
-#include "env_common.cuh"
+#include "env_warp.cuh"
 
 template <int N, int W>
 __global__ void fused_step_kernel(StateIn in, StateOut out,
                                   const int* action,
                                   const unsigned char* enabled, int rows) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  Row<N, W> s;
-  load_row<N, W>(in, r, s);
-  if (s.result == ONGOING && enabled[r]) {   // else the row comes back frozen
-    step_row<N, W>(s, action[r]);
-    s.result = result_of<N, W>(s);
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (r >= rows) return;                     // the whole warp: r is its row
+  WarpGame<N, W> g;
+  warp_load<N, W>(in, r, lane, g);
+  if (g.result == ONGOING && enabled[r]) {   // else the row comes back frozen
+    warp_step<N, W>(g, action[r], lane);
+    g.result = warp_result<N, W>(g, lane);
   }
-  store_row<N, W>(out, r, s);
+  warp_store<N, W>(out, r, lane, g);
 }
 
 template <int N, int W>
 static void launch(StateIn in, StateOut out, const int* action,
                    const unsigned char* enabled, int rows, cudaStream_t s) {
-  const int threads = 128;
-  fused_step_kernel<N, W><<<(rows + threads - 1) / threads, threads, 0, s>>>(
+  const int warps = warps_per_block(rows);
+  fused_step_kernel<N, W><<<(rows + warps - 1) / warps, 32 * warps, 0, s>>>(
       in, out, action, enabled, rows);
 }
 

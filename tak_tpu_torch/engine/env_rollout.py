@@ -29,8 +29,10 @@ the initial position with their `half_komi`.
 
 What bounds the rollout kernel on the H100: operations.  The state is
 read once and written once (1.8 KB per 6x6 row) around T steps of
-integer, branchy work per row; one thread holds a row for the whole
-rollout, so nothing but the final state goes back to device memory.
+integer, branchy work per row; one warp holds a row for the whole
+rollout, a square per lane in registers (`csrc/env_warp.cuh`), so nothing
+but the final state goes back to device memory.  The sampler kernel
+keeps one thread per row.
 """
 
 from __future__ import annotations

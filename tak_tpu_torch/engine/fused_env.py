@@ -6,14 +6,16 @@ The wrapper `fused_step` runs the CUDA kernel `csrc/fused_step.cu` on a
 CUDA tensor and its plain PyTorch version `step_plain` on a CPU tensor.
 
 The kernel takes the `GameState` fields in their batch-first layout (no
-packing into a kernel layout and back) and runs one thread per row.
-What bounds it on the H100: bytes.  A 6x6 row reads 36*2 int64 stack
-words and 2*36 int32 heights/tops (about 0.9 KB) and writes as much, for a
-few hundred integer operations, far under the card's operations per
-byte; the road flood fill runs on two 64-bit bitboards per row in
-registers.  The design keeps the whole step, the result and the freeze
-in one pass over the row so each byte moves once; rows are independent,
-so the 289,152-row instant-win scan fills the card.
+packing into a kernel layout and back) and runs one warp per row, a
+square per lane (`csrc/env_warp.cuh`).  What bounds it on the H100:
+bytes.  A 6x6 row reads 36*2 int64 stack words and 2*36 int32
+heights/tops (about 0.9 KB) and writes as much, for a few hundred integer
+operations, far under the card's operations per byte; the road flood fill
+runs on 64-bit bitboards made by warp ballots.  The design keeps the
+whole step, the result and the freeze in one pass over the row so each
+byte moves once; a warp's loads of its row are coalesced, and rows are
+independent, so 8,192 rows and the 289,152-row instant-win scan fill the
+card.
 """
 
 from __future__ import annotations

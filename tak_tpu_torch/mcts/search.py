@@ -344,22 +344,26 @@ class MCTS:
 
     @torch.no_grad()
     def run_sims(self, params, tree: Tree) -> Tree:
-        """Full search: `num_waves` waves.  On the pool tier they are
-        pipelined and chunked by `scan_chunk` (each chunk starts with
-        nothing pending and ends with the expand+backup flush, as
-        `tak_tpu` search.py:956-994); on the large-tree tier every wave is
-        whole in itself, so chunking changes nothing."""
+        """Full search: `num_waves` waves, in ceil(num_waves / chunk)
+        chunks of `chunk` = ceil(scan_chunk / wave_size) waves each when
+        `scan_chunk` is set, so that the search runs whole chunks and may
+        run more than `num_waves` waves (`tak_tpu` search.py:947-954,
+        996-1014).  On the pool tier a chunk's waves are pipelined (it
+        starts with nothing pending and ends with the expand+backup flush,
+        as `tak_tpu` search.py:956-994); on the large-tree tier every wave
+        is whole in itself."""
         cfg = self.config
         total = cfg.num_waves
-        if self.tier == "hbm":
-            for _ in range(total):
-                self._wave_hbm(params, tree)
-            return tree
         chunk = total
         if cfg.scan_chunk:
             chunk = min(total, -(-cfg.scan_chunk // cfg.wave_size))
+        chunks = -(-total // chunk)
+        if self.tier == "hbm":
+            for _ in range(chunks * chunk):
+                self._wave_hbm(params, tree)
+            return tree
         B = tree.n0.shape[0]
-        for _ in range(-(-total // chunk)):
+        for _ in range(chunks):
             pending = Pending.zeros(B, cfg.wave_size, cfg.max_children,
                                     tree.n0.device)
             for _ in range(chunk):

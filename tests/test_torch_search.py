@@ -183,6 +183,20 @@ def test_run_sims_wave4_root_stats():
     assert_trees_equal(jt, tt, "wave4")
 
 
+def test_run_sims_large_tier_whole_chunks():
+    """With `scan_chunk` set, the large-tree tier runs whole chunks as the
+    reference does: 40 sims at wave 8 are 5 waves, a chunk of 24 sims is 3
+    waves, so both run 2 chunks = 6 waves (48 rollouts) on each game."""
+    jt, tt = run_both(4, ["a4", "d4", "b2"], num_sims=40, wave_size=8, k=16,
+                      budget=None, backend="pallas_hbm", scan_chunk=24)
+    assert int(np.asarray(jt.n0)[0]) == 49
+    assert int(np.asarray(jt.next_free)[0]) == 42
+    for f in ("n0", "next_free"):
+        np.testing.assert_array_equal(getattr(tt, f).numpy(),
+                                      np.asarray(getattr(jt, f)), err_msg=f)
+    assert_trees_equal(jt, tt, "large tier, scan_chunk=24")
+
+
 def test_reroot_matches_jax():
     """Tree reuse on a recycled 4x4 search, with and without carry
     compaction (`keep`), matches `tak_tpu.mcts.reuse.reroot` field for
