@@ -4,13 +4,15 @@
     git archive <commit> | tar -x -C build/parent      # build/ is git-ignored
     python3 chip_ab.py build/parent            # the large-tree tier
     python3 chip_ab.py build/parent --pool     # the pool tier
-    python3 chip_ab.py build/parent --env      # the env kernels #1 and #7
+    python3 chip_ab.py build/parent --env      # the env kernels #1, #5-#7
 
 Builds the other checkout's `tak_tpu_torch/csrc/tree_wave_hbm.cu` (with
-`--pool`, `tree_wave.cu`; with `--env`, `fused_step.cu` and
-`env_rollout.cu`) beside this checkout's (same C entry points), then drives
-both in one process, in turns (other, this, this, other, other, this),
-with Net6 16x128 and seeded random weights.
+`--pool`, `tree_wave.cu`; with `--env`, `fused_step.cu`,
+`fused_step_legal.cu` and `env_rollout.cu`) beside this checkout's (same
+C entry points), then drives both in one process, in turns (other, this,
+this, other, other, this), with Net6 16x128 and seeded random weights.
+The default mode needs another checkout whose large-tree backup takes
+the scratch buffer of wide waves (`tak_backup_scratch_bytes`).
 
 The large-tree tier, on the `Player` at its defaults:
   * move 1's search (800 waves, 51,200 rollouts) from a fresh tree;
@@ -30,11 +32,14 @@ plain versions first):
     leaf rows, the instant-win scan's 289,152 probe rows of 32 roots, 64
     rows (a Player wave's leaves) and one row (`Game.play`), beside the
     launch floor (`chip_smoke.launch_floor_ms`);
+  * the fused step with legal bits (#5) at 8,192 and 64 rows, and the
+    legal sampler (#6) at 8,192 rows, seeded and with given words;
   * the env rollout (#7) at 8,192 rows x 64 steps, seeded;
   * env steps/s: `Engine.env_rollout_fn(64)` on 8,192 fresh games, 8
     launches after a warm-up (`chip_smoke.env_rollout_phase`);
-  * the two paths that launch #1: the Player's move 1 (as in the large-tree
-    mode) and one self-play move's search with `fused_leaf_legal` off.
+  * the paths that launch #1 and #5: the Player's move 1 (as in the
+    large-tree mode) and one self-play move's search with
+    `fused_leaf_legal` off and on.
 
 Kernel times are CUDA-event means (`chip_smoke.cuda_ms`).  The searched
 trees must come out the same with both libraries.  Two versions are
@@ -276,10 +281,17 @@ def env_ab(other_dir: str, dev, card):
     import torch
 
     from tak_tpu_torch.engine.core import get_engine
-    from tak_tpu_torch.engine.env_rollout import env_rollout, env_rollout_plain
+    from tak_tpu_torch.engine.env_rollout import (
+        env_rollout,
+        env_rollout_plain,
+        legal_sampler,
+        legal_sampler_plain,
+    )
     from tak_tpu_torch.engine.fused_env import fused_step, step_plain
+    from tak_tpu_torch.engine.legal_bits import step_legal, step_legal_plain
 
-    libs = libraries(other_dir, ("fused_step", "env_rollout"), verbose=True)
+    libs = libraries(other_dir, ("fused_step", "fused_step_legal",
+                                 "env_rollout"), verbose=True)
     engine = get_engine(cs.N)
     rng = np.random.default_rng(cs.SEED)
     states, roots = cs.selfplay_rows(engine, rng, dev)
@@ -296,6 +308,15 @@ def env_ab(other_dir: str, dev, card):
     shapes["64 rows"] = head(cs.P_WAVE)
     shapes["one row"] = head(1)
     want = {k: step_plain(engine, *v) for k, v in shapes.items()}
+    # the step with legal bits (#5) on a self-play wave's rows and a Player
+    # wave's; the sampler (#6) seeded and with given words
+    legal_shapes = {k: shapes[k] for k in (f"{cs.ROWS:,} rows", "64 rows")}
+    want_legal = {k: step_legal_plain(engine, *v)
+                  for k, v in legal_shapes.items()}
+    draws = {"seeded": dict(seed=cs.SEED + 7),
+             "given words": dict(bits=cs.u32_words(rng, cs.ROWS, dev))}
+    want_draw = {k: legal_sampler_plain(engine, states, **kw)
+                 for k, kw in draws.items()}
     start = states[:cs.R_ENVS].map(lambda x: x.contiguous())
     seeded = dict(seed=(cs.SEED + 1) << 33 | 5)
     want_roll = env_rollout_plain(engine, start, cs.R_STEPS, **seeded)
@@ -306,8 +327,23 @@ def env_ab(other_dir: str, dev, card):
         for k, v in shapes.items():
             cs.compare_states(fused_step(engine, *v), want[k],
                               f"fused_step ({k}) with the {name} kernels")
+        for k, v in legal_shapes.items():
+            got = step_legal(engine, *v)
+            cs.compare_states(got[0], want_legal[k][0],
+                              f"fused_step_legal ({k}) with the {name} "
+                              "kernels")
+            cs.same_tensors(got[1:], want_legal[k][1:],
+                            f"fused_step_legal words ({k}) with the {name} "
+                            "kernels")
+        for k, kw in draws.items():
+            cs.same_tensors(legal_sampler(engine, states, **kw), want_draw[k],
+                            f"legal_sampler ({k}) with the {name} kernels")
         cs.compare_states(env_rollout(engine, start, cs.R_STEPS, **seeded),
                           want_roll, f"env_rollout with the {name} kernels")
+        legal_ms = {k: cs.launch_ms(lambda: step_legal(engine, *v))
+                    for k, v in legal_shapes.items()}
+        draw_ms = {k: cs.launch_ms(lambda: legal_sampler(engine, states, **kw))
+                   for k, kw in draws.items()}
         step_ms = {}
         for k, v in shapes.items():
             if k.startswith("win scan"):    # one launch fills the card
@@ -319,16 +355,20 @@ def env_ab(other_dir: str, dev, card):
         _, _, rate = cs.env_rollout_phase(engine, dev, card)
         cs.log(f"{name}: fused_step " + ", ".join(
             f"{k} {t:.4f} ms" for k, t in step_ms.items())
+            + "; fused_step_legal " + ", ".join(
+                f"{k} {t:.4f} ms" for k, t in legal_ms.items())
+            + "; legal_sampler " + ", ".join(
+                f"{k} {t:.4f} ms" for k, t in draw_ms.items())
             + f"; env_rollout {cs.R_ENVS:,} x {cs.R_STEPS} {roll:.4f} ms; "
             f"{rate:,.0f} env steps/s on {card}")
 
-    # the two paths that launch #1, end to end with each side's kernels:
-    # the Player's move 1 and one self-play move's search (option off)
+    # the paths that launch #1 and #5, end to end with each side's kernels:
+    # the Player's move 1 and one self-play move's search with
+    # fused_leaf_legal off (#1 steps the leaves) and on (#5 does)
     engine, eval_fn, params = network(dev)
     player_moves(libs, engine, eval_fn, params, dev, card)
     config = cs.make_actor(engine, eval_fn, dev, cs.MOVES).search_config
-    selfplay_searches(libs, engine, eval_fn, params, roots, config, card,
-                      options=(False,))
+    selfplay_searches(libs, engine, eval_fn, params, roots, config, card)
 
 
 if __name__ == "__main__":

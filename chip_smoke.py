@@ -16,10 +16,13 @@ Phases, each fatal on failure:
          capstone smash, a spread that completes both roads, a snake road,
          the last piece of a reserve, a full board, the reversible draw,
          plies 0-1, disabled and finished rows) and on 1,024 playout rows
-         (the rollout 8 steps with given words); the fused step
-         with legal bits on the same rows, on 1,024 playout rows at 5x5 and
-         8x8, and (phase 5) on a Player wave's 64 leaf rows: states and
-         packed words, and the words unpacked against `Engine.legal_mask`;
+         (the rollout 8 steps with given words), and on both row sets the
+         fused step with legal bits (states and packed words) and the legal
+         sampler (given words and seeded, on the rows and on the rows their
+         step leaves); the fused step with legal bits on the 8,192 rows, on
+         1,024 playout rows at 5x5 and 8x8, and (phase 5) on a Player
+         wave's 64 leaf rows: states and packed words, and the words
+         unpacked against `Engine.legal_mask`;
        * the legal sampler on those 8,192 rows and the env rollout at
          8,192 rows x 64 steps, each with given random words and with a
          seed (Philox written out in the kernel and in the plain version);
@@ -58,7 +61,9 @@ Phases, each fatal on failure:
      this path again at the shapes it gave them, bitwise against their
      plain versions and timed: both large-tree waves on move 1's searched
      tree, the fused step on that wave's 64 leaf rows and on one row (as
-     `Game.play` steps);
+     `Game.play` steps).  Then a Player at wave 512 (`-b 512`), wider
+     than the backup kernel's shared memory holds, for 8 waves, and both
+     large-tree waves at V=512 on its tree, bitwise and timed;
   6. the entry points as subprocesses: a TEI dialogue over pipes and the
      analysis command line on a short PTN file;
   6a. the self-play slice again with `fused_leaf_legal=True` for 2 searched
@@ -124,6 +129,8 @@ P_K = 128
 P_POOL = 131_072
 P_WAVES = 800                  # 51,200 rollouts per move, the ponder cap
 P_MOVES = 3
+P_WIDE = 512                   # a Player wave wider than shared memory holds
+P_WIDE_WAVES = 8
 
 # the env rollout path (the JAX package's bench.py:28-29,70-81)
 R_ENVS = 8192
@@ -770,6 +777,50 @@ def player_phase(engine, eval_fn, params, dev, card):
     return launches, lines, rate, player, searched
 
 
+def wide_wave_phase(engine, eval_fn, params, dev, card):
+    """The Player at a wave of P_WIDE leaves (`-b 512` of the command
+    lines), wider than the backup kernel's shared memory holds: root
+    noise, P_WIDE_WAVES waves through the kernels (the root must count
+    1 + rollouts), then both large-tier kernels held bitwise against their
+    plain versions on that tree at V = P_WIDE and timed
+    (`check_hbm_on_tree`).  Returns those times."""
+    import torch
+
+    from tak_tpu_torch.game import Game
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.mcts import tree_kernels_hbm
+    from tak_tpu_torch.player import Player
+
+    game = Game.with_komi(N, 2, dev)
+    for mv in ("a1", "f6"):
+        game.play(mv)
+    player = Player(engine, eval_fn, params, game, wave_size=P_WIDE,
+                    generator=torch.Generator(device=dev).manual_seed(SEED))
+    player.add_noise(0.2, 0.3)
+    sync()
+    kb.reset_launches()
+    t0 = time.perf_counter()
+    sims = player.rollout(P_WIDE_WAVES)
+    sync()
+    sec = time.perf_counter() - t0
+    n0 = int(player.tree.n0[0])
+    if n0 != 1 + sims or int(player.tree.virt0[0]) != 0:
+        fail(f"Player at wave {P_WIDE}: root count {n0} after {sims} "
+             "rollouts, or virtual visits left")
+    if kb.LAUNCHES.get("expand_backup_wave_hbm", 0) <= 0:
+        fail(f"Player at wave {P_WIDE}: the large-tier backup did not launch")
+    scratch = tree_kernels_hbm._SCRATCH_BYTES.get(P_WIDE, 0)
+    if scratch == 0:
+        fail(f"Player at wave {P_WIDE}: the backup's paths were expected in "
+             "its global buffer, not in shared memory")
+    log(f"Player at wave {P_WIDE}: {sims} rollouts in {sec:.3f} s "
+        f"({sims / sec:,.0f} rollouts/s), {int(player.tree.next_free[0])} "
+        f"nodes, the backup's recorded paths in a global buffer of "
+        f"{scratch:,} B, on {card}")
+    return check_hbm_on_tree(player.mcts, params, player.tree,
+                             f"the Player's tree at wave {P_WIDE}", card)
+
+
 def check_single_step(engine, tree, card):
     """The fused step on one row, as `Game.play` launches it: the tree's
     root position and its most visited action, against the plain version."""
@@ -1134,6 +1185,10 @@ def check_rollout_kernels(engine, states, rng, card):
         cuda_ms(lambda _: legal_sampler_plain(engine, states, seed=SEED + 7),
                 2),
         *bound(*sampler_work(engine, states, rows, False)))
+    out["legal_sampler, given words"] = (
+        launch_ms(lambda: legal_sampler(engine, states, bits=bits)),
+        cuda_ms(lambda _: legal_sampler_plain(engine, states, bits=bits), 2),
+        *bound(*sampler_work(engine, states, rows, True)))
     log(f"check legal_sampler: {rows} rows bitwise equal with given words "
         f"and seeded, every action legal, counts equal the dense mask's "
         f"(mean {float(got[1].float().mean()):.1f} legal actions)")
@@ -1166,19 +1221,43 @@ def check_rollout_kernels(engine, states, rng, card):
 
 
 def check_env_sizes(dev, rng, card):
-    """Hold the fused step (#1) and the env rollout (#7) against their plain
-    versions, bitwise, at every size 3-8 (one or two squares a lane, one to
-    four stack words): on the hand-built cases of `env_cases` (the step
-    with the cases' actions and enabled rows; the rollout CASE_STEPS steps
-    from the cases' positions, with given words and seeded) and on
-    SIZE_ROWS playout rows (the step with random legal actions, some rows
-    disabled; the rollout SIZE_STEPS steps with given words)."""
+    """Hold the env kernels against their plain versions, bitwise, at every
+    size 3-8 (one or two squares a lane, one to four stack words, one to
+    eight words a spread direction): on the hand-built cases of
+    `env_cases` (the steps with the cases' actions and enabled rows; the
+    rollout CASE_STEPS steps from the cases' positions, with given words
+    and seeded) and on SIZE_ROWS playout rows (the steps with random legal
+    actions, some rows disabled; the rollout SIZE_STEPS steps with given
+    words).  The fused step (#1) and the step with legal bits (#5: states,
+    `place` and `spread`, frozen and finished rows included) on both row
+    sets; the sampler (#6, given words and seeded) on both row sets and on
+    the positions their step leaves; the rollout (#7)."""
     import torch
 
     from tak_tpu_torch.engine import env_cases
     from tak_tpu_torch.engine.core import get_engine
-    from tak_tpu_torch.engine.env_rollout import env_rollout, env_rollout_plain
+    from tak_tpu_torch.engine.env_rollout import (
+        env_rollout,
+        env_rollout_plain,
+        legal_sampler,
+        legal_sampler_plain,
+    )
     from tak_tpu_torch.engine.fused_env import fused_step, step_plain
+    from tak_tpu_torch.engine.legal_bits import step_legal, step_legal_plain
+
+    def legal_kernels(engine, st, a, en, what):
+        got = step_legal(engine, st, a, en)
+        want = step_legal_plain(engine, st, a, en)
+        compare_states(got[0], want[0], f"fused_step_legal ({what})")
+        same_tensors(got[1:], want[1:], f"fused_step_legal words ({what})")
+        rows = st.ply.shape[0]
+        seeded = dict(seed=SEED + rows)
+        for pos, sst in (("", st), (", stepped", want[0])):
+            for kw, how in ((dict(bits=u32_words(rng, rows, dev)),
+                             "given words"), (seeded, "seeded")):
+                same_tensors(legal_sampler(engine, sst, **kw),
+                             legal_sampler_plain(engine, sst, **kw),
+                             f"legal_sampler ({what}{pos}, {how})")
 
     t0 = time.perf_counter()
     for n in env_cases.SIZES:
@@ -1190,6 +1269,7 @@ def check_env_sizes(dev, rng, card):
         compare_states(fused_step(engine, st, a, en),
                        step_plain(engine, st, a, en),
                        f"fused_step ({n}x{n} env cases)")
+        legal_kernels(engine, st, a, en, f"{n}x{n} env cases")
         for kw, how in ((dict(bits=u32_words(rng, (CASE_STEPS, len(names)),
                                              dev)), "given words"),
                         (dict(seed=SEED + n), "seeded")):
@@ -1202,16 +1282,20 @@ def check_env_sizes(dev, rng, card):
         compare_states(fused_step(engine, play, pa, pe),
                        step_plain(engine, play, pa, pe),
                        f"fused_step ({n}x{n} playout rows)")
+        legal_kernels(engine, play, pa, pe, f"{n}x{n} playout rows")
         bits = u32_words(rng, (SIZE_STEPS, SIZE_ROWS), dev)
         compare_states(env_rollout(engine, play, SIZE_STEPS, bits=bits),
                        env_rollout_plain(engine, play, SIZE_STEPS, bits=bits),
                        f"env_rollout ({n}x{n} playout rows)")
         sync()
-        log(f"check {n}x{n}: fused_step and env_rollout bitwise equal on "
-            f"{len(set(names))} hand-built env cases ({len(names)} rows; "
-            f"the rollout {CASE_STEPS} steps, given words and seeded) and on "
-            f"{SIZE_ROWS} playout rows (max height "
-            f"{int(play.heights.max())}; the rollout {SIZE_STEPS} steps)")
+        log(f"check {n}x{n}: fused_step, fused_step_legal (states and "
+            f"words), legal_sampler (given words and seeded, before and "
+            f"after the step) and env_rollout bitwise equal on "
+            f"{len(set(names))} hand-built env cases ({len(names)} rows, max "
+            f"height {int(st.heights.max())}; the rollout {CASE_STEPS} steps, "
+            f"given words and seeded) and on {SIZE_ROWS} playout rows (max "
+            f"height {int(play.heights.max())}; the rollout {SIZE_STEPS} "
+            "steps)")
     log(f"check env kernels at sizes 3-8 on {card}: "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1693,6 +1777,7 @@ def main(do_profile: bool = False):
         "the Player's own tree after move 1's search", card)
     one_row = check_single_step(engine, searched, card)
     del searched
+    wide_times = wide_wave_phase(engine, eval_fn, params, dev, card)
     entry_points_phase(here, card)
 
     # ---- 6a. the self-play slice with fused_leaf_legal, then packedq --------
@@ -1787,8 +1872,9 @@ def main(do_profile: bool = False):
         rows.append((name, *player_times[name]))
     for what, times in (("the Player's own tree", player_times),
                         ("one game, check tree", hbm_check),
-                        ("8 games", hbm_times_8)):
-        log(f"comparison at V={P_WAVE} K={P_K} M={P_POOL}, {what}, on {card}: "
+                        ("8 games", hbm_times_8),
+                        (f"the Player's tree at wave {P_WIDE}", wide_times)):
+        log(f"comparison at K={P_K} M={P_POOL}, {what}, on {card}: "
             f"descend_wave_hbm {times['descend_wave_hbm'][0]:.4f} ms vs the "
             f"pool-tier descend_wave {times['descend_wave'][0]:.4f} ms; "
             f"expand_backup_wave_hbm "
@@ -1823,7 +1909,10 @@ def main(do_profile: bool = False):
                        "launch_floor_ms": floor},
         "fused_step_legal": {f"player wave, {P_WAVE} rows":
                              times(player_times["fused_step_legal"])},
-        **{name: {"check tree": hbm_times(hbm_check, name)}
+        "legal_sampler": {"given words":
+                          times(rollout_times["legal_sampler, given words"])},
+        **{name: {"check tree": hbm_times(hbm_check, name),
+                  f"player wave {P_WIDE}": hbm_times(wide_times, name)}
            for name in HBM_TIER},
     }
     kernels = []

@@ -5,24 +5,26 @@
 // legal_sampler_plain and env_rollout_plain; both kernels must agree with
 // them bit for bit, with external bits and with a seed.
 //
-//   tak_legal_sampler: per row, the packed legal bits of the state, then one
+//   tak_legal_sampler: per row, the legal classes of the state, then one
 //     uniform legal action (r = bits % max(total, 1), unsigned, over the
-//     reference's group order) and the legal count.  One thread per row, 64
-//     threads per block (the thread-per-row code of env_common.cuh).
+//     reference's group order) and the legal count.
 //   tak_env_rollout: per row, T times (legal classes -> sample -> step ->
 //     result -> freeze rows that were finished on entry -> reset rows
 //     finished now to the start position, komi kept), the state held in
 //     registers for the whole rollout: ONE launch, one read and one write of
-//     the state.  One warp per row, a square per lane (env_warp.cuh): the
-//     legal classes come from blocker and wall bitboards made by ballots,
-//     the sample from per-group warp sums and a warp scan, the step and the
-//     result as in fused_step.cu.
+//     the state.
+// Both run one warp per row, a square per lane (env_warp.cuh): the legal
+// classes come from blocker and wall bitboards made by ballots, the sample
+// from per-group warp sums over a per-block count table and a warp scan,
+// the step and the result as in fused_step.cu.
 //
 // Random bits: either given ([R] / [T, R] int64 carrying u32 values) or
 // Philox4x32-10 with key = seed and counter = (row, step), written out here
 // so that the plain version computes the same words; every lane of a row's
 // warp runs the generator (registers only, no shuffle).
 //
+// What bounds the sampler: bytes (the state read once, 8 B per row out);
+// each warp is one chain of a load, the legal classes and the sample.
 // What bounds the rollout: operations (T steps of integer, branchy work per
 // row against 1.8 KB moved).  A warp per row turns each step's serial walks
 // over the squares into a few dozen warp-wide instructions, and 8,192 rows
@@ -37,19 +39,25 @@ __global__ void legal_sampler_kernel(StateIn in, const int* tables,
                                      uint32_t k0, uint32_t k1, int* action,
                                      int* total, int rows) {
   __shared__ uint32_t tab[LegalDims<N>::TABLE_WORDS];
+  __shared__ uint32_t ctab[CountDims<N>::WORDS];
   stage_tables<N>(tables, tab);
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  Row<N, W> s;
-  load_row<N, W>(in, r, s);
-  LegalRow<N> g;
-  legal_prepare<N, W>(s, g);
+  stage_counts<N>(tab, ctab);
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (r >= rows) return;                     // the whole warp: r is its row
+  WarpGame<N, W> g;
+  warp_load<N, W>(in, r, lane, g);
+  WarpLegal<WarpGame<N, W>::S> legal;
+  warp_legal<N, W>(g, lane, legal);
+  // the same word in every lane
   const uint32_t word = use_seed ? philox_bits(k0, k1, (uint32_t)r, 0u)
                                  : (uint32_t)bits[r];
   int a, tot;
-  sample_action<N>(g, tab, word, a, tot);
-  action[r] = a;
-  total[r] = tot;
+  warp_sample<N, WarpGame<N, W>::S>(legal, tab, ctab, word, lane, a, tot);
+  if (lane == 0) {
+    action[r] = a;
+    total[r] = tot;
+  }
 }
 
 template <int N, int W>
@@ -100,10 +108,10 @@ extern "C" int tak_legal_sampler(
   void* ins[10] = {i0, i1, i2, i3, i4, i5, i6, i7, i8, i9};
   const StateIn in = state_in(ins);
   cudaStream_t s = (cudaStream_t)stream;
-  const int threads = 64;
-  const int blocks = (rows + threads - 1) / threads;
+  const int warps = warps_per_block(rows);
+  const int blocks = (rows + warps - 1) / warps;
 #define CALL(N_, W_)                                                      \
-  legal_sampler_kernel<N_, W_><<<blocks, threads, 0, s>>>(                \
+  legal_sampler_kernel<N_, W_><<<blocks, 32 * warps, 0, s>>>(             \
       in, (const int*)tables, (const long long*)bits, use_seed, k0, k1,   \
       (int*)action, (int*)total, rows)
   TAK_DISPATCH_SIZE(n, CALL)

@@ -1,5 +1,5 @@
-// Device code of the env kernels that hold one Tak game in one warp, a
-// square per lane (fused_step.cu, and the rollout of env_rollout.cu).
+// Device code of the env kernels, which hold one Tak game in one warp, a
+// square per lane (fused_step.cu, fused_step_legal.cu, env_rollout.cu).
 //
 //   WarpGame<N, W>        lane l holds square l and, where n^2 > 32, square
 //                         l + 32 (its "second slot"): the square's W stack
@@ -21,9 +21,9 @@
 //
 // "Squares ascending" is every first-slot square (0-31) before the second
 // slot (32-63): the 64-bit ballot of the two slots is the board's bitboard.
-// Semantics are those of the thread-per-row code of env_common.cuh (which
-// the step-with-legal-bits and sampler kernels still run) and of the plain
-// PyTorch versions; the kernels must agree with them bit for bit.
+// Semantics are those of the plain PyTorch versions (engine/fused_env.py
+// step_plain, engine/legal_bits.py legal_bits_plain, engine/env_rollout.py
+// sample_action_plain); the kernels must agree with them bit for bit.
 
 #pragma once
 
@@ -323,11 +323,13 @@ __device__ __forceinline__ int warp_result(const WarpGame<N, W>& g, int lane) {
 }
 
 // ---------------------------------------------------------------------------
-// Legal classes and the sample.  The pattern class tables are those of
-// env_common.cuh, staged in shared memory by stage_tables; from them each
-// block stages a count table (stage_counts): for each class (kidx, c,
-// smash) the set bits of each spread word, two words' counts to a u32, so
-// that a square's share of a word group's count is one shared-memory read.
+// Legal classes, the packed words and the sample.  The pattern class
+// tables are those of env_common.cuh, staged in shared memory by
+// stage_tables; a square's spread word (d, w) is warp_spread_word of its
+// classes.  From the tables the sampling kernels stage a count table per
+// block (stage_counts): for each class (kidx, c, smash) the set bits of
+// each spread word, two words' counts to a u32, so that a square's share
+// of a word group's count is one shared-memory read.
 // ---------------------------------------------------------------------------
 
 template <int N>

@@ -11,17 +11,22 @@
 // at 6x6).  The plain PyTorch version is engine/legal_bits.py
 // step_legal_plain; this file must agree with it bit for bit.
 //
-// One thread per row, as the fused step.  The Pallas kernel's sublane shifts,
-// prefix scans and one-hot table selects are not carried over: a ray walk is
-// a loop over at most n-1 squares, the class tables sit in shared memory and
-// are indexed directly.
+// One warp per row, a square per lane (env_warp.cuh), as the fused step:
+// the step and the result of fused_step.cu, then warp_legal on the state as
+// stored (the blocker and wall bitboards by ballot, each square's rays by
+// shifts of its row and column words), and each lane writes its own
+// squares' words, so that neighbouring lanes store neighbouring words.  The
+// Pallas kernel's sublane shifts, prefix scans and one-hot table selects
+// are not carried over: the class tables sit in shared memory and are
+// indexed directly.
 //
 // What bounds it: bytes.  A 6x6 row moves the step's 0.9 KB each way plus
-// 1,296 B of words out, for a few thousand integer operations.  Emitting the
-// words here replaces a dense [R, A] bool mask (9,036 B per 6x6 row) built by
-// some thirty tensor passes.
+// 1,296 B of words out, for a few hundred warp instructions.  Emitting the
+// words here replaces a dense [R, A] bool mask (9,036 B per 6x6 row) built
+// by some thirty tensor passes.  8,192 rows are 1,024 blocks of 8 warps;
+// 64 rows (a Player wave) are 64 blocks of one warp.
 
-#include "env_common.cuh"
+#include "env_warp.cuh"
 
 template <int N, int W>
 __global__ void fused_step_legal_kernel(StateIn in, StateOut out,
@@ -30,38 +35,47 @@ __global__ void fused_step_legal_kernel(StateIn in, StateOut out,
                                         const int* tables, int* place,
                                         int* spread, int rows) {
   constexpr int N2 = N * N;
+  constexpr int S = WarpGame<N, W>::S;
   constexpr int WP = LegalDims<N>::WP;
   __shared__ uint32_t tab[LegalDims<N>::TABLE_WORDS];
   stage_tables<N>(tables, tab);
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  Row<N, W> s;
-  load_row<N, W>(in, r, s);
-  if (s.result == ONGOING && enabled[r]) {
-    step_row<N, W>(s, action[r]);
-    s.result = result_of<N, W>(s);
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (r >= rows) return;                     // the whole warp: r is its row
+  WarpGame<N, W> g;
+  warp_load<N, W>(in, r, lane, g);
+  if (g.result == ONGOING && enabled[r]) {   // else the row comes back frozen
+    warp_step<N, W>(g, action[r], lane);
+    g.result = warp_result<N, W>(g, lane);
   }
-  store_row<N, W>(out, r, s);
+  warp_store<N, W>(out, r, lane, g);
 
-  LegalRow<N> g;
-  legal_prepare<N, W>(s, g);
+  // the words of the state as stored, frozen and finished rows included
+  WarpLegal<S> L;
+  warp_legal<N, W>(g, lane, L);
   int* pl = place + (size_t)r * N2;
   int* sp = spread + (size_t)r * 4 * WP * N2;
-  for (int q = 0; q < N2; ++q) pl[q] = (int)g.place[q];
-  for (int d = 0; d < 4; ++d)
-    for (int w = 0; w < WP; ++w)
-      for (int q = 0; q < N2; ++q)
-        sp[((size_t)d * WP + w) * N2 + q] =
-            (int)spread_word<N>(g, tab, q, d, w);
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int q = lane + 32 * s;
+    if (q >= N2) continue;
+    pl[q] = L.place[s];
+#pragma unroll
+    for (int d = 0; d < 4; ++d)
+#pragma unroll
+      for (int w = 0; w < WP; ++w)
+        sp[(size_t)(d * WP + w) * N2 + q] =
+            (int)warp_spread_word<N>(L.kidx[s], L.rays[s], tab, d, w);
+  }
 }
 
 template <int N, int W>
 static void launch(StateIn in, StateOut out, const int* action,
                    const unsigned char* enabled, const int* tables, int* place,
                    int* spread, int rows, cudaStream_t s) {
-  const int threads = 128;
+  const int warps = warps_per_block(rows);
   fused_step_legal_kernel<N, W>
-      <<<(rows + threads - 1) / threads, threads, 0, s>>>(
+      <<<(rows + warps - 1) / warps, 32 * warps, 0, s>>>(
           in, out, action, enabled, tables, place, spread, rows);
 }
 

@@ -62,6 +62,11 @@
 //     too): every leaf's path recorded in parallel, the new rows installed
 //     by the idle warps, then warp 0 applies the leaves in order, a path's
 //     levels together, each with its three loads before its three stores.
+//     The recorded paths take 544 B a leaf; a wave too wide for the shared
+//     memory (above some 427 leaves) keeps them in a global buffer that the
+//     wrapper allocates, so any wave the reference takes runs in one launch
+//     (splitting the wave would change which occurrence of a repeated leaf
+//     installs its row).
 //   Tried and dropped: prefetch.global.L1 of the chosen child's rows (and of
 //     the next leaf's lines in the backup) made both kernels slower; a table
 //     of c_puct and sqrtf by visit total in shared memory changed nothing
@@ -336,10 +341,16 @@ descend_hbm_kernel(DescendTree t, Dims p, int cap, int* leaves_out,
   }
 }
 
+// The recorded paths live in shared memory, or, where a wave's do not fit
+// (`scratch` not null: V above some 427 leaves), in the game's own stretch
+// of a global buffer, read and written exactly as the shared array.
 __global__ void __launch_bounds__(BACKUP_THREADS)
-expand_backup_hbm_kernel(BackupTree t, PendingWave pd, Dims p) {
+expand_backup_hbm_kernel(BackupTree t, PendingWave pd, Dims p,
+                         int* scratch) {
   extern __shared__ int sh[];
-  backup_wave<PATH_CAP>(t, pd, p, blockIdx.x, sh);
+  const size_t words = backup_smem_bytes<PATH_CAP>(p.V) / sizeof(int);
+  int* paths = scratch == nullptr ? sh : scratch + blockIdx.x * words;
+  backup_wave<PATH_CAP>(t, pd, p, blockIdx.x, paths);
 }
 
 // One thread per game follows the parent links of the wave's leaves, leaf
@@ -418,7 +429,7 @@ extern "C" int tak_expand_backup_wave_hbm(
     void* edge_virt, void* edge_w, void* root_n, void* root_virt,
     void* root_w, void* n0, void* virt0,
     void* leaves, void* topk_vals, void* topk_aidx, void* results,
-    void* values, void* to_move, void* stream) {
+    void* values, void* to_move, void* scratch, void* stream) {
   BackupTree t;
   t.parent = (const int*)parent; t.parent_slot = (const int*)parent_slot;
   t.parent_action = (const int*)parent_action;
@@ -435,8 +446,9 @@ extern "C" int tak_expand_backup_wave_hbm(
   pd.topk_aidx = (const int*)topk_aidx; pd.results = (const int*)results;
   pd.values = (const float*)values; pd.to_move = (const int*)to_move;
   const Dims p = {B, M, K, A, V, 0.0f, 0.0f};
-  // the wrapper keeps V within MAX_WAVE
-  const size_t bytes = backup_smem_bytes<PATH_CAP>(V);
+  // with a scratch buffer (tak_backup_scratch_bytes) no shared memory
+  const size_t bytes =
+      scratch == nullptr ? backup_smem_bytes<PATH_CAP>(V) : 0;
   static size_t sized = 48 * 1024;
   if (bytes > sized) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -446,8 +458,29 @@ extern "C" int tak_expand_backup_wave_hbm(
     sized = bytes;
   }
   expand_backup_hbm_kernel<<<B, BACKUP_THREADS, bytes,
-                             (cudaStream_t)stream>>>(t, pd, p);
+                             (cudaStream_t)stream>>>(t, pd, p,
+                                                     (int*)scratch);
   return (int)cudaGetLastError();
+}
+
+// The bytes of global scratch per game that tak_expand_backup_wave_hbm
+// needs at wave V, written to *bytes_out (a host long long): 0 where the
+// block's shared memory (what the card opts in to, less the kernel's static
+// shared memory) holds the wave's recorded paths.
+extern "C" int tak_backup_scratch_bytes(int V, void* bytes_out) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, expand_backup_hbm_kernel);
+  if (err != cudaSuccess) return (int)err;
+  const size_t bytes = backup_smem_bytes<PATH_CAP>(V);
+  *(long long*)bytes_out =
+      bytes + attr.sharedSizeBytes > (size_t)optin ? (long long)bytes : 0;
+  return 0;
 }
 
 extern "C" int tak_parent_chase(int B, int M, int V, void* parent,

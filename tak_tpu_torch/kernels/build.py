@@ -66,8 +66,11 @@ SIGNATURES = {
     # B, M, K, A, V, base, init, 19 tree fields, leaves, created, stream
     "tak_descend_wave_hbm": ("tree_wave_hbm", [_I] * 5 + [_F, _F]
                              + [_P] * 22),
-    # B, M, K, A, V, 15 tree fields, 6 pending fields, stream
-    "tak_expand_backup_wave_hbm": ("tree_wave_hbm", [_I] * 5 + [_P] * 22),
+    # B, M, K, A, V, 15 tree fields, 6 pending fields, scratch (or null),
+    # stream
+    "tak_expand_backup_wave_hbm": ("tree_wave_hbm", [_I] * 5 + [_P] * 23),
+    # V, the host address of a long long: the scratch bytes a game
+    "tak_backup_scratch_bytes": ("tree_wave_hbm", [_I, _P]),
     # B, M, V, parent, leaves, levels, stream
     "tak_parent_chase": ("tree_wave_hbm", [_I] * 3 + [_P] * 4),
     # B, M, K, A, V, D, root_child, edge_child, actions, slots, ends, stream

@@ -37,12 +37,13 @@ level's choice through shared memory, while the other twelve warps
 already score the next descent's root pick, handed over through named
 barriers; the thread that scored the chosen slot writes the mark.
 Expand+backup: one thread per leaf records its path to the root, all
-leaves at once; then one warp applies the paths in leaf order, a path's
-levels together, while the other warps install the new rows.  What
-bounds them on the H100: neither bytes nor operations but latency, the
-chain of dependent global loads of each descent, on one SM of 132;
-`parent_chase` and `child_chase` measure that round trip on a wave's own
-paths.
+leaves at once (in shared memory, or in a global buffer from the wrapper
+for a wave too wide for it); then one warp applies the paths in leaf
+order, a path's levels together, while the other warps install the new
+rows.  What bounds them on the H100: neither bytes nor operations but
+latency, the chain of dependent global loads of each descent, on one SM
+of 132; `parent_chase` and `child_chase` measure that round trip on a
+wave's own paths.
 
 The plain PyTorch versions below are batched over games and loop over
 the V descents and the walk; they are what a CPU tensor runs and what
@@ -50,6 +51,8 @@ the kernels are held against bitwise on the card.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -248,9 +251,6 @@ _PENDING_ARGS = (
 )
 
 
-MAX_WAVE = 384           # leaves whose recorded paths fit shared memory
-
-
 def _dims(tree: Tree, V: int) -> dict:
     """The kernels' dimensions; raises on a shape they do not take."""
     B, M, K = tree.edge_n.shape
@@ -259,10 +259,28 @@ def _dims(tree: Tree, V: int) -> dict:
     if M * K >= 2 ** 31:
         raise ValueError(f"{M} nodes x {K} children: an edge index does not "
                          "fit the 32-bit path codes of the backup kernel")
-    if not 1 <= V <= MAX_WAVE:
-        raise ValueError(f"wave size {V} outside 1..{MAX_WAVE}: the backup "
-                         "kernel keeps every leaf's path in shared memory")
+    if V < 1 or V * K >= 2 ** 31:
+        raise ValueError(f"wave size {V} x {K} children: the backup kernel "
+                         "counts a wave's row slots in 32 bits")
     return {"B": B, "M": M, "K": K, "A": tree.root_n.shape[1], "V": V}
+
+
+_SCRATCH_BYTES: dict[int, int] = {}   # wave size -> bytes a game
+
+
+def _backup_scratch(lib, B: int, V: int, dev):
+    """The backup kernel's global buffer for a wave whose recorded paths
+    (544 B a leaf) do not fit the block's shared memory: int32 [B, bytes/4],
+    or None where the shared memory holds them."""
+    if V not in _SCRATCH_BYTES:
+        nbytes = ctypes.c_longlong()
+        kb.check(lib.tak_backup_scratch_bytes(V, ctypes.addressof(nbytes)),
+                 "backup_scratch_bytes")
+        _SCRATCH_BYTES[V] = nbytes.value
+    words = _SCRATCH_BYTES[V] // 4
+    if words == 0:
+        return None
+    return torch.empty((B, words), dtype=torch.int32, device=dev)
 
 
 def descend_wave_hbm(tree: Tree, wave_size: int, *, base: float,
@@ -297,11 +315,12 @@ def expand_backup_wave_hbm(tree: Tree, pending: Pending) -> None:
     _check(tree, _BACKUP_ARGS, d, dev, "expand_backup_wave_hbm")
     _check(pending, _PENDING_ARGS, d, dev, "expand_backup_wave_hbm")
     lib = kb.library("tree_wave_hbm")
+    scratch = _backup_scratch(lib, d["B"], d["V"], dev)
     err = lib.tak_expand_backup_wave_hbm(
         d["B"], d["M"], d["K"], d["A"], d["V"],
         *(kb.ptr(getattr(tree, f)) for f, _, _ in _BACKUP_ARGS),
         *(kb.ptr(getattr(pending, f)) for f, _, _ in _PENDING_ARGS),
-        kb.stream_ptr(dev))
+        None if scratch is None else kb.ptr(scratch), kb.stream_ptr(dev))
     kb.check(err, "expand_backup_wave_hbm")
     kb.LAUNCHES["expand_backup_wave_hbm"] += 1
 

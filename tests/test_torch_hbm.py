@@ -23,7 +23,6 @@ from tak_tpu_torch.mcts.search import MCTS, SearchConfig
 from tak_tpu_torch.mcts.tree_kernels import Pending
 from tak_tpu_torch.mcts.tree_kernels_hbm import (
     MAX_HBM_NODES,
-    MAX_WAVE,
     _dims,
     child_chase,
     descend_wave_hbm_plain,
@@ -315,10 +314,10 @@ def test_chase_aids_follow_the_wave():
 
 
 @pytest.mark.parametrize("M,K,V", [(2 ** 22, 1024, 64), (1024, 2048, 64),
-                                   (1024, 128, MAX_WAVE + 1), (1024, 128, 0)])
+                                   (1024, 128, 2 ** 24), (1024, 128, 0)])
 def test_wrapper_refuses_shapes(M, K, V):
     """Shapes the CUDA kernels do not take raise with a message instead of
-    running wrong or slow."""
+    running wrong or slow (a wave's row slots, V x K, count in 32 bits)."""
     fake = types.SimpleNamespace(
         edge_n=torch.empty((1, M, K), device="meta"),
         root_n=torch.empty((1, 9036), device="meta"))
@@ -327,3 +326,14 @@ def test_wrapper_refuses_shapes(M, K, V):
     assert _dims(types.SimpleNamespace(
         edge_n=torch.empty((1, 131_072, 128), device="meta"),
         root_n=fake.root_n), 64)["K"] == 128
+
+
+@pytest.mark.parametrize("V", [385, 512, 4096])
+def test_wrapper_takes_wide_waves(V):
+    """Any wave the reference's large tier takes: the backup kernel keeps
+    the recorded paths of a wave too wide for shared memory in a global
+    buffer, so `_dims` takes V = 512 (`-b 512` of the command lines) on a
+    small tree, as the JAX package's tier does."""
+    _, tt = hand_trees("shared_prefix", "4x4_k32", seed=3)
+    d = _dims(tt, V)
+    assert (d["V"], d["K"]) == (V, tt.edge_n.shape[2])
