@@ -76,6 +76,34 @@ Phases, each fatal on failure:
      1..8) with one synchronization: env steps per second.  Checks: nothing
      but the rollout kernel launched, every row ongoing, pieces conserved;
      then the sampler kernel draws one action per final row, all legal;
+  6c. the learner on real data: the trained Net5 (`runs/train5_r3`) and its
+     committed buffer of 28,215 5x5 self-play examples, one `Network.train`
+     pass (56 chunks of 500: 2 Adam steps and the trailing flush) after a
+     one-chunk warm-up: examples/s, ms per chunk, each step's loss parts.
+     Checks: losses and weights finite, every parameter changed;
+  6d. card against CPU: one chunk of Net5 in float64 (125 examples) and in
+     float32 (500), TF32 off, on the card and through the port on the CPU:
+     the loss parts, the summed gradients and the new batch statistics
+     within the tolerances of `card_vs_cpu_phase`;
+  6e. the learner at the reference step: the trained Net6
+     (`runs/train6_r4/_models/1787285471.model`), 20,000 seeded 6x6
+     examples, 2 steps of 20 x 500 x 8 = 80,000 rows after a one-chunk
+     warm-up: examples/s, ms per step, the share of the bf16 peak;
+  6f. the pit at its defaults (128 games, 800 sims, wave 16, K=128, a
+     1,602-node pool, tree reuse) cut to max_plies 16, its only cut: the
+     trained Net6 against 6e's candidate; plies/s and ms per half-batch
+     search.  Checks: the launches of #1-#4 equal those the config
+     implies, every game counted, visits carried by reuse.  Then #2, #4
+     and #3 bitwise against their plain versions on the tree that each
+     first half-batch search started from (carried by reuse), grown by 1,
+     4, 10 or 25 of its waves, and timed with their bound and chain floor
+     on ply 8's tree grown by 10 waves;
+  6g. the generation loop through `python -m tak_tpu_torch.cli.train` as
+     subprocesses in a temporary workdir: 2 generations from the trained
+     Net6, then `--resume` to a third (full width; cut: 4 self-play games
+     of 256 rollouts, 4 pit games of 64 rollouts, chunks of 50, 4 a step).
+     Checks: the artifacts, that the resumed run starts at generation 3,
+     that the port's `load_run` reads the checkpoint;
   7. time each kernel (CUDA events; a kernel launched twenty times back to
      back behind a spin long enough for the host to queue them all) and
      its plain version at the main paths' shapes, with the least time the
@@ -89,12 +117,14 @@ Phases, each fatal on failure:
   8. print one `{"kernels": [...]}` line, then the `{"ok": true, ...}` line.
      A kernel's `ms`, `plain_ms` and `bound_ms` are those of its main-path
      shape (the large-tree waves: the Player's own tree); `other_shapes`
-     holds its times elsewhere, `launches_by_path` the count of each path.
+     holds its times elsewhere (#2-#4 at the pit's shape too),
+     `launches_by_path` the count of each path (the pit's included).
 
 `--profile` adds, before the last two lines, where one self-play move's
-search (with `fused_leaf_legal` off and on) and one Player wave spend their
-time (per-stage host timers, then
-torch.profiler device time).
+search (with `fused_leaf_legal` off and on), one Player wave, one Net6
+optimizer step (stages, one BatchNorm alone, device time by kernel family)
+and one pit half-batch search spend their time (per-stage host timers,
+then torch.profiler device time).
 
 Exits non-zero, printing no result, without a CUDA device or without the
 `tak_tpu_torch` package beside this file.
@@ -106,6 +136,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -141,7 +172,18 @@ CASE_STEPS = 4                 # rollout steps from the hand-built env cases
 SIZE_ROWS = 1024               # playout rows per size for #1 and #7
 SIZE_STEPS = 8
 
+# the training slice
+NET5_WEIGHTS = "runs/train5_r3/_checkpoint/variables.msgpack"
+NET5_BUFFER = "runs/train5_r3/_checkpoint/buffer.data"
+NET5_EXAMPLES = 28_215         # real 5x5 self-play examples
+NET6_WEIGHTS = "runs/train6_r4/_models/1787285471.model"
+L6_EXAMPLES = 20_000           # 2 optimizer steps of 20 chunks of 500
+PIT_PLIES = 16                 # the pit's max_plies: its only cut
+PIT_CHECK_PLY = 8              # the pit tree that the kernel checks start from
+PIT_CHECK_WAVES = 10           # pipelined waves grown on it before the checks
+
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+BF16_OPS_PER_S = 989e12        # H100 SXM tensor cores, dense
 F32_OPS_PER_S = 67e12          # H100 SXM, outside the tensor cores
 
 REPLACES = {
@@ -157,7 +199,7 @@ REPLACES = {
 }
 POOL_TIER = ("backup_descend_wave", "descend_wave", "expand_backup_wave")
 HBM_TIER = ("descend_wave_hbm", "expand_backup_wave_hbm")
-PATHS = ("selfplay", "player", "fused_leaf_legal", "env_rollout")
+PATHS = ("selfplay", "player", "fused_leaf_legal", "env_rollout", "pit")
 SOURCES = {
     "fused_step": "tak_tpu_torch/csrc/fused_step.cu",
     "fused_step_legal": "tak_tpu_torch/csrc/fused_step_legal.cu",
@@ -342,13 +384,14 @@ def tree_bytes(before, after, V, descend: bool, backup: bool):
     return total
 
 
-def tree_ops(B, V, A, M, descend: bool):
+def tree_ops(B, V, A, M, descend: bool, recycle: bool = True):
     """Float/int operations of a wave's descents: the root PUCT score
-    (about 10 operations per action) and the victim scans (about 5 per
-    node, twice) per descent; the walk and backups are negligible."""
+    (about 10 operations per action) and, when recycling, the victim scans
+    (about 5 per node, twice) per descent; the walk and backups are
+    negligible."""
     if not descend:
         return B * V * 64
-    return B * V * (10 * A + 10 * M)
+    return B * V * (10 * A + (10 * M if recycle else 0))
 
 
 def bound(nbytes, ops):
@@ -975,10 +1018,10 @@ def device_profile(run, what, card):
         log(f"  {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
-def profile_search(mcts, params, root_states, card):
-    """Where one self-play move's search (10,240 sims on 32 games) spends
-    its time: once with a synchronized host timer around each stage of
-    every wave, once under torch.profiler."""
+def profile_search(mcts, params, root_states, card, what=None):
+    """Where one search (by default a self-play move's: 10,240 sims on 32
+    games) spends its time: once with a synchronized host timer around
+    each stage of every wave, once under torch.profiler."""
     from tak_tpu_torch.mcts import search as search_mod
 
     patches = [(search_mod, "backup_descend_wave", "tree kernel (merged)"),
@@ -989,8 +1032,8 @@ def profile_search(mcts, params, root_states, card):
                (mcts, "eval_fn", "observe + network"),
                (mcts.engine, "legal_mask", "legal mask"),
                (mcts, "_write_nodes", "write nodes")]
-    what = ("one self-play move's search, fused_leaf_legal="
-            f"{mcts.config.fused_leaf_legal}")
+    what = what or ("one self-play move's search, fused_leaf_legal="
+                    f"{mcts.config.fused_leaf_legal}")
     tree = mcts.prepare_root(params, mcts.init_batch(root_states))
     with timed_stages(patches) as stages:
         sync()
@@ -1466,17 +1509,17 @@ def midsearch_tree(engine, eval_fn, params, roots):
     return mcts, tree, pending
 
 
-def pool_chain_floors(tree, pending, checks):
-    """The chain floors of the pool-tier kernels on the mid-search tree
-    (`chain_floor`): #4 the chase down its own wave's paths, #3 the chase
-    up the pending leaves' paths on the tree before the flush, #2 both
-    (its backups, then its own descents).  Returns ({kernel: ms}, a
-    description)."""
+def pool_chain_floors(tree, pending, checks, V=WAVE):
+    """The chain floors of the pool-tier kernels on a mid-search tree of
+    waves of V (`chain_floor`): #4 the chase down its own wave's paths, #3
+    the chase up the pending leaves' paths on the tree before the flush,
+    #2 both (its backups, then its own descents).  Returns ({kernel: ms},
+    a description)."""
     d_tree, _, _, d_leaves = checks["descend_wave"]
     m_tree, _, _, m_leaves = checks["backup_descend_wave"]
-    down4, _, text4 = chain_floor(d_tree, d_leaves, WAVE)
-    _, up3, text3 = chain_floor(tree, pending.leaves, WAVE)
-    down2, _, text2 = chain_floor(m_tree, m_leaves, WAVE)
+    down4, _, text4 = chain_floor(d_tree, d_leaves, V)
+    _, up3, text3 = chain_floor(tree, pending.leaves, V)
+    down2, _, text2 = chain_floor(m_tree, m_leaves, V)
     floors = {"backup_descend_wave": up3 + down2, "descend_wave": down4,
               "expand_backup_wave": up3}
     return floors, (f"descend wave: {text4}; the pending leaves: {text3}; "
@@ -1571,6 +1614,646 @@ def check_pool_cases(engine, dev, card):
         "descend, merged backup+descend and flush bitwise equal to the plain "
         "versions on " + "; ".join(seen)
         + f" in {time.perf_counter() - t0:.1f} s on {card}")
+
+
+def train_run(net, variables, examples, rng, what, **kw):
+    """One `Network.train` call, synchronized, its log lines echoed.  Fatal
+    unless every step's loss parts are finite, every weight and statistic
+    is finite and every parameter changed.  Returns (new variables, wall
+    seconds, step lines)."""
+    import torch
+
+    logs = []
+    sync()
+    t0 = time.perf_counter()
+    new = net.train(variables, examples, rng=rng, log=logs.append, **kw)
+    sync()
+    wall = time.perf_counter() - t0
+    for line in logs:
+        log(f"  {line}")
+    steps = [line for line in logs if " step" in line]
+    for line in steps:
+        parts = [float(line.split(f" {c}=")[1].split()[0]) for c in "pz"]
+        if not all(math.isfinite(x) for x in parts):
+            fail(f"{what}: loss parts not finite: {line}")
+    for k, v in new.items():
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            fail(f"{what}: {k} is not finite after training")
+        if (not k.endswith(("running_mean", "running_var",
+                            "num_batches_tracked"))
+                and torch.equal(v.cpu(), variables[k].cpu())):
+            fail(f"{what}: parameter {k} did not change")
+    return new, wall, steps
+
+
+def describe(config) -> str:
+    n = config.n
+    return (f"{n}x{n}, {config.blocks} x {config.filters}, "
+            f"{str(config.dtype).replace('torch.', '')}")
+
+
+def learner_net5_phase(dev, card):
+    """The learner on real data: the trained Net5 and the committed 5x5
+    self-play buffer, one `Network.train` pass (56 chunks of 500: 2 steps
+    and the trailing flush) after a one-chunk warm-up call.  Returns
+    (numbers, network, weights, buffer)."""
+    import numpy as np
+
+    from tak_tpu_torch.engine.core import get_engine
+    from tak_tpu_torch.examples import ReplayBuffer
+    from tak_tpu_torch.model.network import CHUNK_SIZE, Network
+    from tak_tpu_torch.model.resnet import NetConfig
+
+    engine = get_engine(5)
+    net = Network(engine, NetConfig.for_size(5), device=dev)
+    variables = net.load(NET5_WEIGHTS)
+    buf = ReplayBuffer()
+    t0 = time.perf_counter()
+    buf.load(engine, NET5_BUFFER)
+    t_load = time.perf_counter() - t0
+    if len(buf) != NET5_EXAMPLES:
+        fail(f"{NET5_BUFFER} holds {len(buf)} examples, not {NET5_EXAMPLES}")
+    # one chunk first, so that cuDNN has picked its algorithms
+    _, t_warm, _ = train_run(net, variables, buf.examples[:CHUNK_SIZE],
+                             np.random.default_rng(0), "Net5 warm-up",
+                             chunks_in_step=1)
+    _, wall, steps = train_run(net, variables, buf.examples,
+                               np.random.default_rng([0, 6]), "Net5 learner")
+    chunks = len(buf) // CHUNK_SIZE
+    if len(steps) != 3:
+        fail(f"Net5 learner took {len(steps)} steps, not 2 + the flush")
+    rate = chunks * CHUNK_SIZE / wall
+    out = {"examples_per_s": rate, "ms_per_chunk": wall * 1e3 / chunks,
+           "parse_s": t_load}
+    log(f"learner Net5 ({describe(net.config)}) on {NET5_BUFFER}: {len(buf)} "
+        f"examples parsed in {t_load:.2f} s; warm-up (one chunk, one step) "
+        f"{t_warm:.2f} s; one pass, {chunks} chunks of {CHUNK_SIZE} x 8 rows "
+        f"(2 steps and the trailing flush), in {wall:.3f} s (prestack "
+        "included): "
+        f"{rate:,.0f} examples/s, {out['ms_per_chunk']:.2f} ms per chunk; "
+        f"every parameter changed, losses and weights finite, on {card}")
+    return out, net, variables, buf
+
+
+def forward_flops_per_row(config) -> int:
+    """Operations of one forward row: the 3x3 convolutions and the value
+    Linear (2 per multiply-add)."""
+    from tak_tpu_torch.sizes import input_channels, move_channels
+
+    n, f = config.n, config.filters
+    convs = ([(input_channels(n), f)] + [(f, f)] * (2 * config.blocks)
+             + [(f, move_channels(n))])
+    return sum(2 * 9 * n * n * ci * co for ci, co in convs) + 2 * f * n * n
+
+
+def seeded_examples(engine, count, rng, dev):
+    """`count` examples of the JAX package's layout from seeded random
+    playouts: sparse visits (1-199) over up to 47 legal actions of each
+    position, results in {-1, 0, 1}."""
+    import numpy as np
+
+    from tak_tpu_torch.examples import Example
+
+    states = playout_states(engine, count, 60, rng, dev)
+    legal = engine.legal_mask(states).cpu().numpy()
+    host = states.to_numpy()
+    out = []
+    for i in range(count):
+        acts = np.nonzero(legal[i])[0]
+        k = min(len(acts), int(rng.integers(1, 48)))
+        acts = (np.sort(rng.choice(acts, k, replace=False)) if k
+                else np.zeros(1, np.int64))
+        out.append(Example(
+            state={f: v[i] for f, v in host.items()},
+            actions=acts.astype(np.int32),
+            visits=rng.integers(1, 200, len(acts)).astype(np.int32),
+            result=float(rng.choice([-1.0, 0.0, 1.0]))))
+    return out
+
+
+def learner_net6_phase(dev, card, rng):
+    """The learner at the reference step: the trained Net6, 20,000 seeded
+    6x6 examples, 2 optimizer steps of 20 chunks x 500 x 8 = 80,000 rows
+    (after a one-chunk warm-up call that lets cuDNN pick its algorithms).
+    Returns (numbers, network, incumbent, candidate, examples)."""
+    import numpy as np
+
+    from tak_tpu_torch.engine.core import get_engine
+    from tak_tpu_torch.model.network import (
+        CHUNK_SIZE,
+        CHUNKS_IN_STEP,
+        Network,
+    )
+    from tak_tpu_torch.model.resnet import NetConfig
+
+    engine = get_engine(6)
+    net = Network(engine, NetConfig.for_size(6), device=dev)
+    variables = net.load(NET6_WEIGHTS)
+    t0 = time.perf_counter()
+    examples = seeded_examples(engine, L6_EXAMPLES, rng, dev)
+    t_make = time.perf_counter() - t0
+    _, t_warm, _ = train_run(net, variables, examples[:CHUNK_SIZE],
+                             np.random.default_rng(0), "Net6 warm-up",
+                             chunks_in_step=1)
+    new, wall, steps = train_run(net, variables, examples,
+                                 np.random.default_rng([0, 7]),
+                                 "Net6 learner")
+    if len(steps) != L6_EXAMPLES // (CHUNK_SIZE * CHUNKS_IN_STEP):
+        fail(f"Net6 learner took {len(steps)} steps")
+    rows = CHUNKS_IN_STEP * CHUNK_SIZE * 8
+    fwd = forward_flops_per_row(net.config)
+    step_flops = 3 * fwd * rows
+    ms_step = wall * 1e3 / len(steps)
+    share = step_flops / (ms_step / 1e3) / BF16_OPS_PER_S
+    out = {"examples_per_s": L6_EXAMPLES / wall, "ms_per_step": ms_step,
+           "bf16_share": share, "step_tflop": step_flops / 1e12}
+    log(f"learner Net6 ({describe(net.config)}) at the reference step: "
+        f"{L6_EXAMPLES} seeded examples made in {t_make:.1f} s; warm-up "
+        f"(one chunk, one step) {t_warm:.2f} s; {len(steps)} steps of "
+        f"{CHUNKS_IN_STEP} x {CHUNK_SIZE} x 8 = {rows:,} rows in {wall:.3f} s "
+        f"(prestack included): {out['examples_per_s']:,.0f} examples/s, "
+        f"{ms_step:.1f} ms per step; forward {fwd / 1e6:.1f} MFLOP a row, "
+        f"a step {step_flops / 1e12:.1f} TFLOP (3 x forward), "
+        f"{100 * share:.1f}% of the bf16 peak of {BF16_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s, on {card}")
+    return out, net, variables, new, examples
+
+
+def card_vs_cpu_phase(dev, card, variables, examples):
+    """One 500-example chunk of Net5 on the card and through the port on
+    the CPU, the same weights and rows, TF32 off: the loss parts, the
+    summed gradients and the new batch statistics, in float32 (and first
+    in float64, on the chunk's first 125 examples).  Tolerances (relative
+    errors; a tensor's to its own largest magnitude or norm):
+      * float64: loss parts, statistics and every gradient tensor 1e-6:
+        the same arithmetic on both devices.
+      * float32: loss parts and statistics 1e-4; the summed gradients as
+        one vector 2e-3 of their norm and each tensor 1e-2 of its norm.
+        flax's BatchNorm takes the variance as E[x^2] - E[x]^2, whose
+        float32 cancellation each side's gradients carry: the phase prints
+        how far each side's float32 gradients lie from float64 ones
+        (PERF.md §6, PR 8), and the two sides differ by about that.
+    The conv biases that a BatchNorm follows have a gradient of zero up to
+    rounding: theirs is held, absolutely, to 1e-3 (float64: 1e-6) of the
+    largest gradient of the conv's weight.  Returns the float32 errors."""
+    import numpy as np
+    import torch
+
+    from tak_tpu_torch.engine.core import get_engine
+    from tak_tpu_torch.model.network import CHUNK_SIZE, Network
+    from tak_tpu_torch.model.resnet import NetConfig
+
+    chunk = examples[:CHUNK_SIZE]
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def one_chunk(where, dtype, rows):
+        cfg = dataclasses.replace(NetConfig.for_size(5), dtype=dtype)
+        net = Network(get_engine(5), cfg, device=where)
+        model = net._train_model(variables)
+        pre = net._prestack(rows)
+        sync()
+        t0 = time.perf_counter()
+        lp, lz = net._accum_chunk(
+            model, *net._chunk_arrays(pre, np.arange(len(rows))))
+        sync()
+        return ((float(lp), float(lz)),
+                {k: p.grad.detach().cpu().double()
+                 for k, p in model.named_parameters()},
+                {k: b.detach().cpu().double() for k, b in model.named_buffers()
+                 if k.endswith(("running_mean", "running_var"))},
+                time.perf_counter() - t0)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-300))
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-300))
+
+    def bn_led(k):   # a conv bias that a BatchNorm follows
+        return k.endswith(".bias") and (k.startswith("stem.") or ".conv" in k)
+
+    def flat(grads):
+        return torch.cat([g.flatten() for k, g in grads.items()
+                          if not bn_led(k)])
+
+    out = {}
+    try:
+        # float64 on a quarter of the chunk: the host's float64 convolutions
+        # are slow, and agreement to 1e-6 needs no more rows.  How far each
+        # side's float32 gradients lie from them, on the same rows, is the
+        # scale of the float32 tolerance below.
+        quarter = chunk[:len(chunk) // 4]
+        exact = one_chunk(dev, torch.float64, quarter)[1]
+        far = [rel_l2(flat(one_chunk(where, torch.float32, quarter)[1]),
+                      flat(exact)) for where in (dev, torch.device("cpu"))]
+        log(f"float32 gradients of {len(quarter)} x 8 rows against float64 "
+            f"ones (L2, as one vector): the card's {far[0]:.2e}, the host "
+            f"CPU's {far[1]:.2e}")
+        for dtype, tol, rows in ((torch.float64, 1e-6, quarter),
+                                 (torch.float32, None, chunk)):
+            (loss_c, grad_c, stat_c, t_c), (loss_h, grad_h, stat_h, t_h) = (
+                one_chunk(dev, dtype, rows),
+                one_chunk(torch.device("cpu"), dtype, rows))
+            bn_bias = [k for k in grad_h if bn_led(k)]
+            rest = [k for k in grad_h if not bn_led(k)]
+            err = {
+                "loss": max(abs(a - b) / abs(b)
+                            for a, b in zip(loss_c, loss_h)),
+                "stats": max(rel(stat_c[k], stat_h[k]) for k in stat_h),
+                "bn_biases": max(
+                    float((grad_c[k] - grad_h[k]).abs().max()
+                          / grad_h[k[:-4] + "weight"].abs().max())
+                    for k in bn_bias),
+                "grads": rel_l2(flat(grad_c), flat(grad_h)),
+                "tensor_l2": max(rel_l2(grad_c[k], grad_h[k]) for k in rest),
+                "tensor_max": max(rel(grad_c[k], grad_h[k]) for k in rest),
+            }
+            limits = ({k: tol for k in err} if tol else
+                      {"loss": 1e-4, "stats": 1e-4, "bn_biases": 1e-3,
+                       "grads": 2e-3, "tensor_l2": 1e-2, "tensor_max": None})
+            name = str(dtype).replace("torch.", "")
+            log(f"card against CPU (Net5 in {name}, TF32 off, one chunk of "
+                f"{len(rows)} x 8 rows): largest relative error of the loss "
+                f"parts {err['loss']:.2e} (policy {loss_c[0]:.6f} vs "
+                f"{loss_h[0]:.6f}, value {loss_c[1]:.6f} vs {loss_h[1]:.6f}), "
+                f"of the new batch statistics {err['stats']:.2e}, of the "
+                f"summed gradients as one vector {err['grads']:.2e} (L2), "
+                f"of a gradient tensor {err['tensor_l2']:.2e} (L2) and "
+                f"{err['tensor_max']:.2e} (largest entry), of the BN-led conv "
+                f"biases' gradients to their weights' {err['bn_biases']:.2e}; "
+                "limits " + ", ".join(f"{k} {v:g}" for k, v in limits.items()
+                                      if v)
+                + f"; the chunk took {t_c * 1e3:.1f} ms on {card} and "
+                f"{t_h:.2f} s on the host CPU")
+            if any(v is not None and err[k] > v for k, v in limits.items()):
+                fail(f"card against CPU: the {name} training chunk disagrees")
+            out = err
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    return out
+
+
+def pit_phase(engine, net, incumbent, candidate, dev, card):
+    """The pit at its defaults (128 games, 800 sims, wave 16, K=128, a
+    1,602-node pool, tree reuse) cut to `max_plies` = PIT_PLIES: the first
+    Net6 learner step's candidate against the trained Net6.  Checks the
+    launch counts of #1-#4 against the config, that every game is
+    counted and that reuse carried visits.  Returns (launches, numbers,
+    the trees (with their ply and weights, and the search) that the first
+    half-batch's searches started from, from the second searched ply
+    on)."""
+    from tak_tpu_torch import pit as pit_mod
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.mcts.search import MCTS
+
+    cfg = pit_mod.PitConfig(max_plies=PIT_PLIES)
+    opening = 2 + cfg.random_plies
+    search_s, captured = [], {}
+
+    class Timed(MCTS):
+        def run_sims(self, params, tree):
+            if len(search_s) % 2 == 0 and len(search_s) > 0:
+                # the first half-batch's tree from the second searched ply
+                # on, as reuse carried it in
+                captured.setdefault("trees", []).append(
+                    (opening + len(search_s) // 2, params, tree.clone()))
+                captured["mcts"] = self
+            sync()
+            t = time.perf_counter()
+            out = super().run_sims(params, tree)
+            sync()
+            search_s.append(time.perf_counter() - t)
+            return out
+
+    stats = {}
+    pit_mod.MCTS = Timed
+    try:
+        kb.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        result = pit_mod.pit(engine, net.policy_eval_states, candidate,
+                             incumbent, cfg, seed=SEED,
+                             log=lambda m: log(f"  {m}"), stats=stats,
+                             device=dev)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(kb.LAUNCHES)
+    finally:
+        pit_mod.MCTS = MCTS
+    S = len(search_s)
+    plies = S // 2
+    waves = cfg.search.num_waves
+    want = {"descend_wave": S, "backup_descend_wave": S * (waves - 1),
+            "expand_backup_wave": S,
+            # leaf steps, one step a ply, the batched opening steps and
+            # the openings' own games (`Game.play_action`)
+            "fused_step": S * waves + plies + opening
+            + cfg.games // 2 * opening}
+    log(f"launches in the pit: {launches} ({S} half-batch searches of "
+        f"{waves} waves)")
+    if launches != want:
+        fail(f"pit launches {launches}, expected {want}")
+    if plies != PIT_PLIES - opening:
+        fail(f"the pit played {plies} plies")
+    total = result.wins + result.losses + result.draws + result.unfinished
+    if total != cfg.games or stats["carried_n0"] <= 0:
+        fail(f"pit result {result} or carried visits {stats} malformed")
+    out = {"plies_per_s": plies / wall,
+           "game_plies_per_s": plies * cfg.games / wall,
+           "ms_per_search": 1e3 * sum(search_s) / S, "wall_s": wall}
+    log(f"pit (Net6 candidate vs trained Net6, {cfg.games} games, "
+        f"{cfg.search.num_sims} sims, wave {cfg.search.wave_size}, K "
+        f"{cfg.search.max_children}, {captured['mcts'].config.max_nodes}-node "
+        f"pool, tree reuse; cut: max_plies {PIT_PLIES}): {result}, "
+        f"carried_n0 {stats['carried_n0']}; {plies} plies in {wall:.2f} s: "
+        f"{out['plies_per_s']:.2f} lockstep plies/s ({out['game_plies_per_s']:,.0f} "
+        f"game plies/s), {out['ms_per_search']:.1f} ms per half-batch search "
+        f"({cfg.games // 2} games x {cfg.search.num_sims} sims) on {card}")
+    return launches, out, captured
+
+
+def pit_kernels_phase(captured, card):
+    """The pool-tier kernels at the pit's shape (64 games, K=128, M=1,602,
+    V=16, no recycling), bitwise against their plain versions: on the tree
+    that each first half-batch search started from (carried by reuse),
+    grown by 1, 4, 10 or 25 pipelined waves of that search in turn, #2 and
+    #3 on the pending wave and #4; then on the tree of ply PIT_CHECK_PLY
+    grown by PIT_CHECK_WAVES waves, timed (`launch_ms` over fresh copies
+    of the tree) with their bound and chain floor.  Returns ({kernel: (ms,
+    plain ms, bound ms, bound by)}, {kernel: floor ms})."""
+    from tak_tpu_torch.mcts.tree_kernels import (
+        Pending,
+        backup_descend_plain,
+        backup_descend_wave,
+        descend_wave,
+        expand_backup_plain,
+        expand_backup_wave,
+    )
+
+    mcts = captured["mcts"]
+    scfg = mcts.config
+    V = scfg.wave_size
+    kargs = dict(base=scfg.exploration_base, init=scfg.exploration_init,
+                 recycle=False)
+
+    def grow(params, tree, waves):
+        B, _, K = tree.edge_n.shape
+        pending = Pending.zeros(B, V, K, tree.n0.device)
+        for _ in range(waves):
+            pending = mcts._wave_pipelined(params, tree, pending)
+        sync()
+        return pending
+
+    def held(tree, pending):
+        """#2, #4 and #3 on copies of `tree`, each against its plain
+        version.  Returns ({kernel: (tree after, descends, backs up,
+        leaves)}, {kernel: (kernel run, plain run, descends, backs up)},
+        the empty pending wave)."""
+        B, _, K = tree.edge_n.shape
+        zero = Pending.zeros(B, V, K, tree.n0.device)
+        runs = {
+            "backup_descend_wave": (
+                lambda t: backup_descend_wave(t, pending, **kargs),
+                lambda t: backup_descend_plain(t, pending, **kargs), True,
+                True),
+            "descend_wave": (
+                lambda t: descend_wave(t, V, **kargs),
+                lambda t: backup_descend_plain(t, zero, **kargs), True, False),
+            "expand_backup_wave": (
+                lambda t: expand_backup_wave(t, pending, recycle=False),
+                lambda t: expand_backup_plain(t, pending, recycle=False),
+                False, True),
+        }
+        checks = {}
+        for name, (run_k, run_p, descend, backup) in runs.items():
+            tk, tp = tree.clone(), tree.clone()
+            out_k, out_p = run_k(tk), run_p(tp)
+            sync()
+            compare_trees(tk, tp, f"{name} at the pit's shape")
+            if out_k is not None and not all(bool((x == y).all())
+                                             for x, y in zip(out_k, out_p)):
+                fail(f"{name} at the pit's shape: leaves/created differ")
+            checks[name] = (tk, descend, backup, out_k[0] if out_k else None)
+        return checks, runs, zero
+
+    seen = []
+    for i, (ply, params, tree) in enumerate(captured["trees"]):
+        waves = (1, 4, 10, 25)[i % 4]
+        carried = int(tree.n0.sum())
+        tree = tree.clone()
+        held(tree, grow(params, tree, waves))
+        seen.append(f"ply {ply}: {carried} visits carried, {waves} waves")
+    log("check pool tier at the pit's shape: #2 backup_descend_wave, #4 "
+        "descend_wave and #3 expand_backup_wave bitwise equal to the plain "
+        "versions on the first half-batch's tree of every searched ply but "
+        "the first (" + "; ".join(seen) + ")")
+
+    _, params, tree = next(x for x in captured["trees"]
+                           if x[0] == PIT_CHECK_PLY)
+    tree = tree.clone()
+    B, M, K = tree.edge_n.shape
+    A = tree.root_n.shape[1]
+    carried = int(tree.n0.sum())
+    pending = grow(params, tree, PIT_CHECK_WAVES)
+    checks, runs, zero = held(tree, pending)
+    times = {}
+    for name, (run_k, run_p, descend, backup) in runs.items():
+        copies = iter([tree.clone() for _ in range(20)])
+        if name == "descend_wave":   # its empty pending wave made beforehand
+            t_kernel = launch_ms(lambda: backup_descend_wave(
+                next(copies), zero, **kargs))
+        else:
+            t_kernel = launch_ms(lambda: run_k(next(copies)))
+        del copies
+        t_plain = cuda_ms(run_p, 1, lambda: tree.clone())
+        times[name] = (t_kernel, t_plain, *bound(
+            tree_bytes(tree, checks[name][0], V, descend, backup),
+            tree_ops(B, V, A, M, descend, recycle=False)))
+    floors, chase = pool_chain_floors(tree, pending, checks, V)
+    log(f"time pool tier at the pit's shape on {card} (B={B} K={K} M={M} "
+        f"V={V}, A={A}, recycling off; the tree of ply {PIT_CHECK_PLY}'s "
+        f"first half-batch search, {carried} root visits carried by reuse, "
+        f"then {PIT_CHECK_WAVES} pipelined waves): "
+        + "; ".join(f"{n} {v[0]:.4f} ms (plain {v[1]:.3f} ms, bound "
+                    f"{v[2]:.6f} ms by {v[3]}, chain floor {floors[n]:.4f} "
+                    "ms)" for n, v in times.items())
+        + f"; {chase}")
+    return times, floors
+
+
+def train_cli_phase(here, card):
+    """The generation loop through its command line, as subprocesses, in
+    a temporary workdir: two generations from the trained Net6, then
+    `--resume` to a third.  Full width (16 x 128); cut: 4 self-play games
+    of 256 rollouts, 4 pit games of 64 rollouts, chunks of 50 and 4 chunks
+    a step.  Checks the artifacts, that the resumed run starts at
+    generation 3, and that the port's `load_run` reads the checkpoint."""
+    import torch
+
+    from tak_tpu_torch.model.resnet import NetConfig
+    from tak_tpu_torch.utils.checkpoint import load_run
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = ["-m", "tak_tpu_torch.cli.train", NET6_WEIGHTS, "--size", "6",
+               "--games", "4", "--workers", "4", "--rollouts", "256",
+               "--wave", "32", "--pit-games", "4", "--pit-rollouts", "64",
+               "--chunk-size", "50", "--chunks-in-step", "4", "--workdir",
+               tmp]
+        t0 = time.perf_counter()
+        first = run_entry(cmd + ["--generations", "2"], here, timeout=600)
+        t1 = time.perf_counter()
+        second = run_entry(cmd + ["--resume", "--generations", "3"], here,
+                           timeout=600)
+        t2 = time.perf_counter()
+        ckpt = os.path.join(tmp, "_checkpoint")
+        for name in ("variables.msgpack", "meta.json", "buffer.data"):
+            if not os.path.exists(os.path.join(ckpt, name)):
+                fail(f"train CLI: _checkpoint/{name} missing")
+        gens = [l.split("]")[0] + "]" for l in second.splitlines()
+                if l.startswith("[gen ")]
+        if "at generation 2" not in second or not gens \
+                or set(gens) != {"[gen 3]"}:
+            fail(f"train CLI: the resumed run did not start at generation "
+                 f"3:\n{second[-3000:]}")
+        for out, last in ((first, 2), (second, 3)):
+            if f"[gen {last}] pitting candidate vs incumbent" not in out:
+                fail(f"train CLI: generation {last} did not train and "
+                     f"gate:\n{out[-3000:]}")
+        data = os.listdir(os.path.join(tmp, "_examples"))
+        accepted = (first + second).count("accepted; saved")
+        models = os.listdir(os.path.join(tmp, "_models"))
+        if len(data) != 3 or len(models) != accepted:
+            fail(f"train CLI: {len(data)} example files, {len(models)} "
+                 f"models for {accepted} accepted candidates")
+        variables, meta = load_run(ckpt, config=NetConfig.for_size(6))
+        with open(os.path.join(ckpt, "buffer.data")) as f:
+            lines = sum(1 for line in f if line.strip())
+        if meta.get("generation") != 3 or meta.get("buffer_len") != lines \
+                or not all(bool(torch.isfinite(v.float()).all())
+                           for v in variables.values()):
+            fail(f"train CLI: checkpoint meta {meta} ({lines} buffered "
+                 "lines) or weights malformed")
+    gates = [l for l in (first + second).splitlines()
+             if "win_rate=" in l or "accepted;" in l or "rejected" in l]
+    log(f"entry point cli.train (Net6 16 x 128; cut: 4 self-play games x "
+        f"256 rollouts, 4 pit games x 64 rollouts, chunks of 50, 4 a step): "
+        f"2 generations in {t1 - t0:.1f} s, --resume to generation 3 in "
+        f"{t2 - t1:.1f} s (process start included); {'; '.join(gates)}; "
+        f"checkpoint read back at generation 3 with {lines} examples, on "
+        f"{card}")
+    return t2 - t0
+
+
+def profile_learner_step(net, variables, examples, card):
+    """Where one Net6 optimizer step (20 chunks of 500 x 8 rows) spends its
+    time: synchronized host timers around its stages; one BatchNorm's
+    forward and backward at a chunk's shape (CUDA events) times the step's
+    BatchNorms; then torch.profiler's device time by kernel family and the
+    device's idle share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tak_tpu_torch.model.network import CHUNK_SIZE, CHUNKS_IN_STEP
+    from tak_tpu_torch.model.resnet import BatchNorm
+
+    model = net._train_model(variables)
+    opt = net.make_optimizer(model.parameters())
+    pre = net._prestack(examples[:CHUNK_SIZE * CHUNKS_IN_STEP])
+    idx = [np.arange(i * CHUNK_SIZE, (i + 1) * CHUNK_SIZE)
+           for i in range(CHUNKS_IN_STEP)]
+    stages = collections.defaultdict(float)
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        sync()
+        stages[name] += time.perf_counter() - t
+        return out
+
+    def step():
+        for i in idx:
+            states, acts, vis, z = timed(
+                "host chunk assembly + copy to the card", net._chunk_arrays,
+                pre, i)
+            planes, pi, z = timed(
+                "observe + targets + symmetry",
+                lambda: net._symmetry_expand(net.observe_batch(states),
+                                             net._build_pi(acts, vis), z))
+            loss, _, _ = timed("forward + loss", net._loss, model, planes,
+                               pi, z)
+            timed("backward", loss.backward)
+        timed("Adam step", lambda: (opt.step(), opt.zero_grad()))
+
+    step()
+    stages.clear()
+    sync()
+    t0 = time.perf_counter()
+    step()
+    wall = time.perf_counter() - t0
+    log_stages(stages, wall, "one Net6 optimizer step", card)
+
+    bn = BatchNorm(net.config.filters).to(net.device).train()
+    n = net.config.n
+    x = torch.randn((CHUNK_SIZE * 8, net.config.filters, n, n),
+                    device=net.device, dtype=net.config.dtype)
+    xl = x.to(memory_format=torch.channels_last).requires_grad_()
+    ms = cuda_ms(lambda _: bn(xl).float().sum().backward(), 5)
+    ms_nchw = cuda_ms(lambda _: bn(x.requires_grad_()).float().sum()
+                      .backward(), 5)
+    count = 1 + 2 * net.config.blocks
+    log(f"profile BatchNorm (CUDA events): one forward + backward at "
+        f"{tuple(x.shape)} {net.config.dtype}, channels-last as in training, "
+        f"{ms:.3f} ms (contiguous NCHW {ms_nchw:.3f} ms); x {count} "
+        f"BatchNorms x {len(idx)} chunks = {ms * count * len(idx):.1f} ms of "
+        f"the step's {wall * 1e3:.1f} ms; its least time from bytes (bf16: "
+        f"forward reads x and writes y, backward reads dy and x and writes "
+        f"dx) {5 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3:.3f} ms, on {card}")
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    def family(name):
+        """A device kernel's family, from cuDNN's and PyTorch's names."""
+        if "fprop" in name:
+            return "convolutions, forward"
+        if "dgrad" in name or "wgrad" in name:
+            return "convolutions, backward (data and weight gradients)"
+        if any(w in name for w in ("conv", "xmma", "cudnn", "gemm",
+                                   "cutlass", "implicit", "winograd")):
+            return "other convolution and matrix-product kernels"
+        if "multi_tensor" in name:
+            return "Adam (multi-tensor)"
+        return "other kernels (BatchNorm, loss, observe, symmetry, copies)"
+
+    families = collections.defaultdict(float)
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            families[family(e.key.lower())] += dev_us(e) / 1e3
+    busy = sum(families.values())
+    log(f"profile device (torch.profiler, one Net6 optimizer step): wall "
+        f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms, idle "
+        f"{100 - 100 * busy / (wall * 1e3):.1f}% on {card}")
+    for fam, ms_f in sorted(families.items(), key=lambda kv: -kv[1]):
+        log(f"  {ms_f:9.2f} ms  {fam}")
+    top = sorted((e for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                 key=lambda e: -dev_us(e))[:12]
+    for e in top:
+        log(f"  {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} "
+            f"[{family(e.key.lower()).split(' (')[0]}] {e.key[:80]}")
 
 
 def make_actor(engine, eval_fn, dev, moves, **search_options):
@@ -1810,10 +2493,32 @@ def main(do_profile: bool = False):
     for name in ("env_rollout", "legal_sampler"):
         if r_launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the env rollout path")
+
+    # ---- 6c-6h. the training slice ------------------------------------------
+    l5, _, vars5, buf5 = learner_net5_phase(dev, card)
+    agree = card_vs_cpu_phase(dev, card, vars5, buf5.examples)
+    del vars5, buf5
+    l6, net6, vars6, cand6, ex6 = learner_net6_phase(dev, card, rng)
+    pit_launches, pit_out, captured = pit_phase(engine, net6, vars6, cand6,
+                                                dev, card)
+    pit_times, pit_floors = pit_kernels_phase(captured, card)
+    t_cli = train_cli_phase(here, card)
+    train_line = (
+        f"learner Net5 {l5['examples_per_s']:,.0f} examples/s "
+        f"({l5['ms_per_chunk']:.2f} ms per chunk); learner Net6 "
+        f"{l6['examples_per_s']:,.0f} examples/s ({l6['ms_per_step']:.1f} ms "
+        f"per step, {100 * l6['bf16_share']:.1f}% of the bf16 peak); card "
+        f"against CPU in float32: loss {agree['loss']:.1e}, gradients "
+        f"{agree['grads']:.1e} (L2), statistics {agree['stats']:.1e}; pit "
+        f"{pit_out['plies_per_s']:.2f} plies/s ({pit_out['ms_per_search']:.1f} "
+        f"ms per half-batch search); cli.train 3 generations in "
+        f"{t_cli:.1f} s")
+
     # each path was driven from counts of 0 (the packedq move is no path
     # of its own: it launches what the self-play slice launches)
     by_path = {name: dict(zip(PATHS, (c.get(name, 0) for c in (
-        launches, p_launches, f_launches, r_launches)))) for name in REPLACES}
+        launches, p_launches, f_launches, r_launches, pit_launches))))
+        for name in REPLACES}
 
     # ---- 7. timing ---------------------------------------------------------
     rows = []
@@ -1889,6 +2594,12 @@ def main(do_profile: bool = False):
                  dataclasses.replace(scfg, fused_leaf_legal=True)),
             params, roots, card)
         profile_player(player, card)
+        profile_learner_step(net6, vars6, ex6, card)
+        _, pit_params, pit_tree = captured["trees"][0]
+        profile_search(captured["mcts"], pit_params, pit_tree.state[:, 0],
+                       card, "one pit half-batch search (64 games x 800 "
+                       "sims, K=128, fresh trees)")
+    del captured
 
     def times(t):
         return dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), t))
@@ -1914,6 +2625,10 @@ def main(do_profile: bool = False):
         **{name: {"check tree": hbm_times(hbm_check, name),
                   f"player wave {P_WIDE}": hbm_times(wide_times, name)}
            for name in HBM_TIER},
+        **{name: {"pit, B=64 K=128 M=1602 V=16":
+                  {**times(pit_times[name]),
+                   "chain_floor_ms": pit_floors[name]}}
+           for name in POOL_TIER},
     }
     kernels = []
     for name, t_kernel, t_plain, t_bound, by in rows:
@@ -1949,7 +2664,8 @@ def main(do_profile: bool = False):
         + f"; moves 2-{moves}: {rate:,.0f} self-play sims/s; {wins_line}; "
         + f"{options_line}; {r_line}; "
         + "; ".join(p_lines)
-        + f"; Player: {p_rate:,.0f} rollouts/s over {P_MOVES} moves")
+        + f"; Player: {p_rate:,.0f} rollouts/s over {P_MOVES} moves; "
+        + train_line)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

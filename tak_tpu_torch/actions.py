@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from functools import lru_cache
+from functools import cached_property, lru_cache
 
 import numpy as np
 
@@ -305,8 +305,15 @@ class Tables:
         return Move(row=r, col=c, direction=d,
                     drops=pattern_mask_to_drops(p + 1, n))
 
+    @cached_property
+    def _ptn_index(self) -> dict:
+        """Canonical PTN string -> action id (example files hold tens of
+        thousands of lines, each with dozens of moves)."""
+        return {self.action_to_ptn(a): a for a in range(self.num_actions)}
+
     def ptn_to_action(self, s: str) -> int:
-        return self.move_to_action(parse_move(s))
+        a = self._ptn_index.get(s)
+        return a if a is not None else self.move_to_action(parse_move(s))
 
     def action_to_ptn(self, a: int) -> str:
         return str(self.action_to_move(a))

@@ -37,11 +37,16 @@ def host_fields(state: GameState) -> dict:
 
 
 def state_to_tps(engine: Engine, state: GameState) -> str:
+    return host_to_tps(engine, host_fields(state))
+
+
+def host_to_tps(engine: Engine, host: dict) -> str:
+    """TPS of one position given as numpy fields without a batch axis (the
+    layout of `host_fields` and `tps_to_host`)."""
     n = engine.n
-    host = host_fields(state)
-    heights = host["heights"].reshape(n, n)
-    tops = host["tops"].reshape(n, n)
-    stacks = host["stacks"].reshape(n, n, -1)
+    heights = np.asarray(host["heights"]).reshape(n, n)
+    tops = np.asarray(host["tops"]).reshape(n, n)
+    stacks = np.asarray(host["stacks"]).reshape(n, n, -1)
 
     rows = []
     for r in range(n - 1, -1, -1):

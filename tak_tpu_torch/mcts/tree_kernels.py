@@ -108,7 +108,10 @@ def _last_argmax(scores):
 
 
 def _c_puct(n, base, init):
-    return torch.log((1.0 + n + base) / base) + init
+    # divided by a tensor: PyTorch multiplies a CUDA tensor divided by a
+    # Python scalar by the scalar's reciprocal, which can round one bit away
+    # from the division that the kernels and the CPU compute
+    return torch.log((1.0 + n + base) / torch.full_like(n, base)) + init
 
 
 # ---------------------------------------------------------------------------

@@ -1,29 +1,48 @@
-"""Network wrapper, inference only (counterpart of `tak_tpu/model/network.py:44-148`).
+"""Network wrapper: inference and reference-parity training (counterpart of
+`tak_tpu/model/network.py`).
 
   * `policy_eval` — planes [B, n, n, C] -> (softmax policy [B, A] over the
     full action space, tanh value [B]), with BatchNorm folded into the
     convolutions (`_fold_bn`, eps 1e-5) as the JAX package does.
-  * `variables_from_numpy` — flax's nested numpy `{params, batch_stats}`
-    dicts -> the port's unfolded `state_dict`.
+  * `train(...)` — Adam(lr=1e-4) with classic L2 weight decay 1e-4
+    (network.rs:14-15,40-45), shuffled 500-example chunks, an optimizer
+    step on the SUM of every 20 chunks' gradients, i.e. an effective batch
+    of 10,000 examples (network.rs:17-21,92-96); each chunk is expanded 8x
+    by D4 symmetry on the device (example.rs:62-78); loss =
+    -sum(pi * log_softmax)/B + sum((z - v)^2)/B (network.rs:84-87).  The
+    optimizer is rebuilt per call, as upstream does.
+  * `variables_from_numpy` / `variables_to_numpy` — flax's nested numpy
+    `{params, batch_stats}` <-> the port's unfolded `state_dict`.
   * `init_variables(seed)` — random weights from a seeded torch.Generator.
-  * `Network.load(path)` — a weights file written by the JAX package.
+  * `Network.load` / `Network.save` — weights files of either package
+    (`utils/checkpoint.py`).
 
 Variables are `state_dict`s of the unfolded `TakResNet`; the folded copy
 is built once per variables object (by identity) and loaded into the
-inference module.  Training (`Network.train`) is not ported yet.
+inference module, so `train` returns new tensors and never writes into
+the ones it was given.  Data-parallel training is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
+from functools import cached_property
 
 import numpy as np
 import torch
 
 from ..engine.observe import observe
 from ..sizes import input_channels, move_channels
+from ..types import GameState
 from ..utils.device import resolve_device
 from .resnet import BN_EPS, NetConfig, TakResNet
+
+LEARNING_RATE = 1e-4
+WEIGHT_DECAY = 1e-4
+CHUNK_SIZE = 500
+CHUNKS_IN_STEP = 20
 
 
 def _conv_names(config: NetConfig):
@@ -72,6 +91,48 @@ def variables_from_numpy(params, batch_stats, config: NetConfig) -> dict:
     sd["value.weight"] = w.reshape(1, f * n * n).contiguous()
     sd["value.bias"] = t(val["bias"])
     return sd
+
+
+def config_of(variables: dict) -> NetConfig:
+    """The widths of a `state_dict` (board size, filters, blocks)."""
+    f = variables["stem.weight"].shape[0]
+    blocks = len({k.split(".")[1] for k in variables if k.startswith("blocks.")})
+    n = math.isqrt(variables["value.weight"].shape[1] // f)
+    return NetConfig(n=n, filters=f, blocks=blocks)
+
+
+def variables_to_numpy(variables: dict) -> dict:
+    """state_dict -> flax {params, batch_stats} of float32 numpy arrays: the
+    exact inverse of `variables_from_numpy` (OIHW kernels back to HWIO,
+    the value weight back to flax's (h, w, c) order)."""
+    config = config_of(variables)
+    n, f = config.n, config.filters
+
+    def a(key):
+        return variables[key].detach().float().cpu().numpy()
+
+    def put(tree, path, leaf):
+        for k in path[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[path[-1]] = leaf
+
+    def hwio(key):
+        return np.ascontiguousarray(a(key).transpose(2, 3, 1, 0))
+
+    params, stats = {}, {}
+    for conv, bn, cpath, bpath in _conv_names(config):
+        put(params, cpath, {"kernel": hwio(f"{conv}.weight"),
+                            "bias": a(f"{conv}.bias")})
+        put(params, bpath, {"scale": a(f"{bn}.weight"),
+                            "bias": a(f"{bn}.bias")})
+        put(stats, bpath, {"mean": a(f"{bn}.running_mean"),
+                           "var": a(f"{bn}.running_var")})
+    params["Conv_1"] = {"kernel": hwio("policy.weight"),
+                        "bias": a("policy.bias")}
+    w = a("value.weight").reshape(1, f, n, n).transpose(2, 3, 1, 0)
+    params["Dense_0"] = {"kernel": np.ascontiguousarray(w.reshape(n * n * f, 1)),
+                         "bias": a("value.bias")}
+    return {"params": params, "batch_stats": stats}
 
 
 def init_variables(config: NetConfig, seed: int = 0) -> dict:
@@ -134,11 +195,16 @@ class Network:
         return init_variables(self.config, seed)
 
     def load(self, path: str) -> dict:
-        """Variables from a weights file written by the JAX package's
+        """Variables from a weights file written by either package's
         `Network.save` (`utils/checkpoint.py`)."""
         from ..utils.checkpoint import load_variables
 
         return load_variables(path, self.config)
+
+    def save(self, variables: dict, path: str) -> None:
+        from ..utils.checkpoint import save_variables
+
+        save_variables(path, variables)
 
     def _fold_bn(self, variables: dict) -> dict:
         return fold_bn(variables, self.config)
@@ -161,3 +227,158 @@ class Network:
 
     def policy_eval_states(self, variables: dict, states):
         return self.policy_eval(variables, self.observe_batch(states))
+
+    # -- training ------------------------------------------------------------
+
+    def make_optimizer(self, params):
+        # classic Adam-with-L2: torch's coupled weight decay adds wd * p to
+        # the gradient before Adam's scaling, as optax.chain(
+        # add_decayed_weights, adam) and tch's Adam { wd } do
+        # (network.rs:40-45); AdamW's decoupled decay would not
+        return torch.optim.Adam(params, lr=LEARNING_RATE,
+                                weight_decay=WEIGHT_DECAY)
+
+    def _train_model(self, variables: dict) -> TakResNet:
+        """A fresh unfolded module in train mode holding float32 copies of
+        `variables` on the network's device."""
+        model = TakResNet(self.config).to(self.device)
+        if self.device.type == "cuda":
+            model = model.to(memory_format=torch.channels_last)
+        model.load_state_dict(variables)
+        return model.train()
+
+    @cached_property
+    def _sym_tables(self):
+        """The inverse D4 permutations of squares [8, n2] and actions
+        [8, A], on the network's device."""
+        t = self.engine.tables
+        return (torch.as_tensor(t.sym_square_inv, device=self.device).long(),
+                torch.as_tensor(t.sym_action_inv, device=self.device).long())
+
+    def _symmetry_expand(self, planes, pi, z):
+        """[B, ...] -> [8B, ...] by the D4 group, on the device
+        (example.rs:62), rows in symmetry-major order."""
+        n = self.engine.n
+        sq_inv, act_inv = self._sym_tables
+        B = planes.shape[0]
+        flat = planes.reshape(B, n * n, -1)
+        planes8 = flat[:, sq_inv].transpose(0, 1)           # [8, B, n2, C]
+        pi8 = pi[:, act_inv].transpose(0, 1)                # [8, B, A]
+        return (planes8.reshape((8 * B,) + tuple(planes.shape[1:])),
+                pi8.reshape(8 * B, -1), z.repeat(8))
+
+    def _build_pi(self, acts, vis):
+        """(padded acts [C, W], vis [C, W]) -> [C, A] normalized policy
+        targets, built on the device from the sparse (action, visits)
+        pairs (pads are action 0 with 0 visits).  Equals
+        `Example.policy_dense` exactly: visit counts are below 2^24, so
+        the float32 sums are exact."""
+        pi = torch.zeros((acts.shape[0], self.engine.num_actions),
+                         dtype=torch.float32, device=acts.device)
+        pi.scatter_add_(1, acts.long(), vis)
+        return pi / torch.clamp(vis.sum(-1, keepdim=True), min=1.0)
+
+    @staticmethod
+    def _loss(model, planes, pi, z):
+        logits, value = model(planes)
+        B = logits.shape[0]
+        loss_p = -torch.sum(pi * torch.log_softmax(logits, -1)) / B
+        loss_z = torch.sum(torch.square(z - value)) / B
+        return loss_p + loss_z, loss_p, loss_z
+
+    @staticmethod
+    def _prestack(examples):
+        """One pass over the epoch's examples: stacked state fields, a CSR
+        (concatenated actions/visits + offsets) policy layout, and the
+        result vector, so that each chunk is a few numpy row gathers."""
+        n_ex = len(examples)
+        keys = examples[0].state.keys()
+        states = {k: np.stack([e.state[k] for e in examples]) for k in keys}
+        lens = np.fromiter((len(e.actions) for e in examples), np.int64, n_ex)
+        off = np.zeros(n_ex + 1, np.int64)
+        np.cumsum(lens, out=off[1:])
+        cat_acts = np.concatenate([e.actions for e in examples]).astype(np.int64)
+        cat_vis = np.concatenate([e.visits for e in examples]).astype(np.float32)
+        z = np.fromiter((e.result for e in examples), np.float32, n_ex)
+        return states, off, lens, cat_acts, cat_vis, z
+
+    def _chunk_arrays(self, pre, idx):
+        """One chunk's (states, acts, vis, z) on the device, gathered from
+        the prestacked epoch; the sparse pairs are padded to a power-of-two
+        width."""
+        states, off, lens, cat_acts, cat_vis, z = pre
+        sub = GameState.from_numpy({k: v[idx] for k, v in states.items()},
+                                   self.device)
+        l = lens[idx]
+        width = 1 << max(int(l.max()) - 1, 0).bit_length()
+        cols = np.arange(width, dtype=np.int64)[None, :]
+        mask = cols < l[:, None]
+        pos = np.where(mask, off[idx][:, None] + cols, 0)
+        acts = np.where(mask, cat_acts[pos], 0)
+        vis = np.where(mask, cat_vis[pos], 0.0).astype(np.float32)
+
+        def dev(x):
+            return torch.as_tensor(x, device=self.device)
+
+        return sub, dev(acts), dev(vis), dev(z[idx])
+
+    def _accum_chunk(self, model, states, acts, vis, z):
+        """Planes, targets and the 8x symmetry expansion of one chunk, then
+        its loss's gradients ADDED to the model's `.grad` (and its batch
+        statistics moved).  Returns the (policy, value) loss parts."""
+        planes = self.observe_batch(states)
+        pi = self._build_pi(acts, vis)
+        planes, pi, z = self._symmetry_expand(planes, pi, z)
+        loss, loss_p, loss_z = self._loss(model, planes, pi, z)
+        loss.backward()
+        return loss_p.detach(), loss_z.detach()
+
+    def train(self, variables, examples, *, rng=None, log=print,
+              chunk_size: int | None = None, chunks_in_step: int | None = None,
+              passes: int = 1) -> dict:
+        """`passes` training passes over `examples` (list of Example);
+        passes=1 is reference parity.  Returns the new variables.
+
+        Shuffles the example order with `rng.permutation` (a fresh shuffle
+        per pass, ONE Adam state across passes), walks 500-example chunks
+        and steps the fresh Adam on the summed gradients of every 20
+        (network.rs:37-57); every chunk moves the batch statistics.  A
+        trailing partial step is flushed (the reference drops it, which a
+        small buffer cannot afford: no step at all would leave the
+        candidate equal to the incumbent).  Empty input is a no-op."""
+        if len(examples) == 0:  # tolerate empty input (no-op, ref parity)
+            return variables
+        chunk_size = chunk_size or CHUNK_SIZE
+        chunks_in_step = chunks_in_step or CHUNKS_IN_STEP
+        rng = rng or np.random.default_rng()
+        model = self._train_model(variables)
+        opt = self.make_optimizer(model.parameters())
+
+        t0 = time.time()
+        pre = self._prestack(examples)
+        n_chunks = len(examples) // chunk_size
+        total_chunks = passes * n_chunks
+        log(f"train: prestacked {len(examples)} examples in "
+            f"{time.time() - t0:.1f}s; {n_chunks} chunks"
+            + (f" x {passes} passes" if passes > 1 else ""))
+        done = 0
+        for _ in range(passes):
+            order = rng.permutation(len(examples))
+            for i in range(n_chunks):
+                idx = order[i * chunk_size:(i + 1) * chunk_size]
+                lp, lz = self._accum_chunk(model, *self._chunk_arrays(pre, idx))
+                done += 1
+                if done % chunks_in_step == 0:
+                    log(f"chunk {done}/{total_chunks} p={float(lp):.4f} "
+                        f"z={float(lz):.4f} step")
+                    opt.step()
+                    opt.zero_grad()
+        if total_chunks % chunks_in_step != 0:
+            log(f"chunk {total_chunks}/{total_chunks} p={float(lp):.4f} "
+                f"z={float(lz):.4f} step (trailing flush)")
+            opt.step()
+        dt = time.time() - t0
+        if dt > 0:
+            log(f"train: {total_chunks} chunks in {dt:.1f}s "
+                f"({total_chunks * chunk_size / dt:,.0f} examples/s)")
+        return {k: v.detach().clone() for k, v in model.state_dict().items()}

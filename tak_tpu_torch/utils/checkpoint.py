@@ -1,21 +1,26 @@
-"""Read weights files written by the JAX package.
+"""Weights files and run checkpoints in the JAX package's format.
 
 `tak_tpu.model.network.Network.save` writes `flax.serialization.to_bytes`
 of `{params, batch_stats}`: a msgpack map of nested string-keyed maps
-whose leaves are numpy arrays in msgpack extension type 1 (itself a
-msgpack tuple of shape, dtype name and the raw row-major bytes).  Arrays
-near msgpack's 2 GiB leaf limit are split by flax into a map
-`{"__msgpack_chunked_array__": True, "shape": {...}, "chunks": {...}}`
-of flat pieces.
+(keys sorted, as `jax.device_get` leaves them) whose leaves are numpy
+arrays in msgpack extension type 1 (itself a msgpack tuple of shape, dtype
+name and the raw row-major bytes).  Arrays near msgpack's 2 GiB leaf limit
+are split by flax into a map `{"__msgpack_chunked_array__": True, "shape":
+{...}, "chunks": {...}}` of flat pieces.
 
-This module decodes that subset of msgpack with the standard library and
-numpy alone (neither `msgpack` nor `flax` is a dependency of the port)
-and hands the arrays to `model.network.variables_from_numpy`.  Saving and
-optimizer state are not ported yet.
+This module reads and writes that subset of msgpack with the standard
+library and numpy alone (neither `msgpack` nor `flax` is a dependency of
+the port): `unpackb` / `load_variables` read either package's files,
+`packb` writes the bytes flax writes for the same tree, and `save_run` /
+`load_run` keep the run checkpoint of `tak_tpu/utils/checkpoint.py`
+(`variables.msgpack` + `meta.json`).  No caller of the JAX package
+checkpoints optimizer state, and the port writes none.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import struct
 
 import numpy as np
@@ -128,3 +133,106 @@ def load_variables(path: str, config) -> dict:
     if not isinstance(tree, dict) or not {"params", "batch_stats"} <= set(tree):
         raise ValueError(f"{path}: not a {{params, batch_stats}} weights file")
     return variables_from_numpy(tree["params"], tree["batch_stats"], config)
+
+
+def _pack_len(out: list, n: int, fix: int, fix_max: int, wide: bytes) -> None:
+    """A length-prefixed header: the fix form below `fix_max`, else the
+    first of the 8/16/32-bit forms (type bytes `wide`) that holds `n`."""
+    if fix is not None and n < fix_max:
+        out.append(bytes([fix | n]))
+        return
+    for code, fmt, limit in zip(wide, "BHI", (1 << 8, 1 << 16, 1 << 32)):
+        if code and n < limit:
+            out.append(bytes([code]) + struct.pack(">" + fmt, n))
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack(out: list, obj) -> None:
+    if isinstance(obj, bool) or obj is None:
+        out.append({None: b"\xc0", False: b"\xc2", True: b"\xc3"}[obj])
+    elif isinstance(obj, int):
+        if not 0 <= obj < 1 << 64:
+            raise ValueError(f"integer {obj} is not supported by this writer")
+        if obj < 0x80:
+            out.append(bytes([obj]))
+        else:
+            for code, fmt, limit in ((0xCC, "B", 1 << 8), (0xCD, "H", 1 << 16),
+                                     (0xCE, "I", 1 << 32), (0xCF, "Q", 1 << 64)):
+                if obj < limit:
+                    out.append(bytes([code]) + struct.pack(">" + fmt, obj))
+                    break
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _pack_len(out, len(raw), 0xA0, 32, b"\xd9\xda\xdb")
+        out.append(raw)
+    elif isinstance(obj, bytes):
+        _pack_len(out, len(obj), None, 0, b"\xc4\xc5\xc6")
+        out.append(obj)
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), 0x90, 16, b"\x00\xdc\xdd")
+        for x in obj:
+            _pack(out, x)
+    elif isinstance(obj, dict):
+        _pack_len(out, len(obj), 0x80, 16, b"\x00\xde\xdf")
+        for k in sorted(obj):
+            if not isinstance(k, str):
+                raise ValueError(f"map key {k!r} is not a string")
+            _pack(out, k)
+            _pack(out, obj[k])
+    elif isinstance(obj, np.ndarray):
+        if obj.dtype.hasobject or obj.dtype.isalignedstruct:
+            raise ValueError(f"dtype {obj.dtype} cannot be written")
+        payload = packb((obj.shape, obj.dtype.name, obj.tobytes("C")))
+        n = len(payload)
+        if n in (1, 2, 4, 8, 16):                    # fixext 1/2/4/8/16
+            out.append(bytes([0xD4 + n.bit_length() - 1, _EXT_NDARRAY]))
+        else:                                        # ext 8/16/32
+            _pack_len(out, n, None, 0, b"\xc7\xc8\xc9")
+            out.append(bytes([_EXT_NDARRAY]))
+        out.append(payload)
+    else:
+        raise TypeError(f"cannot write {type(obj).__name__} as msgpack")
+
+
+def packb(obj) -> bytes:
+    """Encode nested str-keyed dicts of numpy arrays (and the ints, strings,
+    bytes and tuples inside an array's extension payload) as flax's
+    `msgpack_serialize` does: maps with sorted keys, arrays as extension
+    type 1.  Arrays must stay below msgpack's 2 GiB leaf limit (flax would
+    chunk them)."""
+    out: list = []
+    _pack(out, obj)
+    return b"".join(out)
+
+
+def save_variables(path: str, variables: dict) -> None:
+    """Write the port's `state_dict` as a weights file that either
+    package's `Network.load` reads (written to a temporary file, then
+    renamed into place)."""
+    from ..model.network import variables_to_numpy
+
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(packb(variables_to_numpy(variables)))
+    os.replace(tmp, path)
+
+
+def save_run(path: str, *, variables: dict, meta: dict | None = None) -> None:
+    """Write a resumable checkpoint directory: `variables.msgpack` and
+    `meta.json`, read by this module's and the JAX package's `load_run`."""
+    os.makedirs(path, exist_ok=True)
+    save_variables(os.path.join(path, "variables.msgpack"), variables)
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump(meta or {}, f, indent=2)
+
+
+def load_run(path: str, *, config) -> tuple[dict, dict]:
+    """(variables, meta) from a `save_run` directory of either package."""
+    variables = load_variables(os.path.join(path, "variables.msgpack"), config)
+    meta_path = os.path.join(path, "meta.json")
+    meta = {}
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return variables, meta

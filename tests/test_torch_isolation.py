@@ -27,7 +27,8 @@ print("HAVE", ",".join(sorted(n for n in sys.modules
 NEW_MODULES = ("analysis", "errors", "game", "player", "engine.tps",
                "engine.ptn", "mcts.tree_kernels_hbm", "utils.checkpoint",
                "cli.analysis_cli", "cli.tei", "engine.legal_bits",
-               "engine.env_rollout")
+               "engine.env_rollout", "examples", "pit", "train_loop", "elo",
+               "cli.train", "cli.elo")
 
 
 def test_port_imports_no_jax_or_tak_tpu():
@@ -59,6 +60,37 @@ def test_cuda_request_without_card_raises():
     with pytest.raises(RuntimeError):
         Network(Engine(6))
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_training_entry_points_default_to_the_card():
+    """`Network.train`, `pit`, the Elo ladder and both training command
+    lines run on the CUDA device unless asked for the CPU: without a card
+    they raise."""
+    import torch
+
+    from tak_tpu_torch.cli import elo as elo_cli
+    from tak_tpu_torch.cli import train as train_cli
+    from tak_tpu_torch.elo import elo_ladder
+    from tak_tpu_torch.engine.core import get_engine
+    from tak_tpu_torch.model.network import Network
+    from tak_tpu_torch.model.resnet import NetConfig
+    from tak_tpu_torch.pit import pit
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    engine = get_engine(3)
+    config = NetConfig(n=3, filters=8, blocks=1)
+    variables = Network(engine, config, device="cpu").init_variables(0)
+    with pytest.raises(RuntimeError):
+        Network(engine, config).train(variables, [])
+    with pytest.raises(RuntimeError):
+        pit(engine, None, None, None)
+    with pytest.raises(RuntimeError):
+        elo_ladder(engine, None, [("a", None), ("b", None)])
+    with pytest.raises(RuntimeError):
+        train_cli.main(["random", "--size", "3"])
+    with pytest.raises(RuntimeError):
+        elo_cli.main(["random", "random", "--size", "3"])
 
 
 def test_player_entry_points_default_to_the_card():
