@@ -104,6 +104,37 @@ Phases, each fatal on failure:
      of 256 rollouts, 4 pit games of 64 rollouts, chunks of 50, 4 a step).
      Checks: the artifacts, that the resumed run starts at generation 3,
      that the port's `load_run` reads the checkpoint;
+  6h. the "xla" search path against the pool-tier kernels at V = 1: the
+     32 mid-game roots, K=32, a recycled 48-node pool (full in every
+     game), the trained Net6 in bf16, 128 waves of one descent: the two
+     trees bitwise equal in every field, node states, `root_w` and
+     `edge_w` included; the launches of both from the config;
+  6i. self-play on the "xla" path (`backend="xla"`) at the reference
+     config for one searched move: the tier, visit conservation and the
+     recycling invariants of `tests/test_recycle.py` on every tree, sims/s
+     and ms per wave beside the pool tier's sims/s of phase 4;
+  6j. Gumbel self-play (gumbel_m=16) at the reference config, 2 searched
+     moves: the tier, move 1's root visits equal to the sequential-halving
+     schedule's in every game, targets summing to 65535 within rounding,
+     legal moves; sims/s;
+  6k. quad-rollout self-play (workers=1, quad_rollout_plies=6, the
+     reference search config), cut to 8 plies: the #1-#4 launches of
+     every search call from the config, 4 calls a move below ply 6, early
+     examples carrying 4x the visits of late ones; sims/s;
+  6l. the dense Net5 head (5x5, 8 x 128, 1,575 legacy moves, seeded
+     weights): the card's float32 forward against the CPU's within
+     DENSE_TOL, a pool-tier self-play search of 2 moves with its launch
+     counts, one `Network.train` pass over the committed 5x5 buffer;
+     examples/s;
+  6m. the playtak bot over a scripted server on 127.0.0.1 (a thread of
+     this script): the trained Net6, the `Player` at its defaults,
+     time_to_think 1 s, the server pausing 0.5 s before each reply so the
+     bot ponders; checks the lines received (each move legal), at least
+     two ponder ticks, the analysis PTN and the examples file read back,
+     #1, #8 and #9 launched; rollouts per think, ms per wave;
+  6n. 256 seeded playouts on the native engine (`tak_tpu_torch.native`)
+     replayed through the batched step on the card (#1): results, plies,
+     reserves and boards equal;
   7. time each kernel (CUDA events; a kernel launched twenty times back to
      back behind a spin long enough for the host to queue them all) and
      its plain version at the main paths' shapes, with the least time the
@@ -182,6 +213,19 @@ PIT_PLIES = 16                 # the pit's max_plies: its only cut
 PIT_CHECK_PLY = 8              # the pit tree that the kernel checks start from
 PIT_CHECK_WAVES = 10           # pipelined waves grown on it before the checks
 
+# the ninth slice's paths
+X1_SIMS = 128                  # waves of one descent in the V=1 check
+X1_POOL = 48                   # its recycled pool: full within the search
+GUMBEL_MOVES = 2               # gumbel self-play: searched moves
+QUAD_PLIES = 8                 # quad-rollout self-play: max_plies
+DENSE_MOVES = 2                # dense Net5 self-play: searched moves
+DENSE_TOL = 1e-4               # dense Net5 float32 forward, card vs CPU
+BOT_THINK_S = 1.0              # the bot's time_to_think
+BOT_REPLY_S = 0.5              # the scripted server's pause before a reply
+BOT_PLIES = 7                  # the scripted game ends after the bot's ply 6
+NATIVE_GAMES = 256             # native playouts replayed on the card
+NATIVE_MAX_PLIES = 300
+
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_OPS_PER_S = 989e12        # H100 SXM tensor cores, dense
 F32_OPS_PER_S = 67e12          # H100 SXM, outside the tensor cores
@@ -199,7 +243,9 @@ REPLACES = {
 }
 POOL_TIER = ("backup_descend_wave", "descend_wave", "expand_backup_wave")
 HBM_TIER = ("descend_wave_hbm", "expand_backup_wave_hbm")
-PATHS = ("selfplay", "player", "fused_leaf_legal", "env_rollout", "pit")
+PATHS = ("selfplay", "player", "fused_leaf_legal", "env_rollout", "pit",
+         "xla_v1", "xla", "gumbel", "quad", "dense_net5", "bot",
+         "native_replay")
 SOURCES = {
     "fused_step": "tak_tpu_torch/csrc/fused_step.cu",
     "fused_step_legal": "tak_tpu_torch/csrc/fused_step_legal.cu",
@@ -1395,7 +1441,7 @@ def env_rollout_phase(engine, dev, card):
 
 
 def selfplay_phase(engine, eval_fn, params, dev, card, what, moves,
-                   **search_options):
+                   check_tier=None, **search_options):
     """The self-play slice at the reference config for `moves` searched
     moves, `search_options` added to its SearchConfig.  Checks every
     chosen action legal and every root's gain of exactly the searched
@@ -1408,6 +1454,8 @@ def selfplay_phase(engine, eval_fn, params, dev, card, what, moves,
     from tak_tpu_torch.types import ONGOING
 
     actor = make_actor(engine, eval_fn, dev, moves, **search_options)
+    if check_tier is not None and actor.mcts.tier != check_tier:
+        fail(f"{what} took tier {actor.mcts.tier}, not {check_tier}")
     scfg = actor.search_config
     per_move, first_tree = [], []
     orig_run, orig_select = actor.mcts.run_sims, actor.mcts.select_moves
@@ -1976,15 +2024,24 @@ def pit_phase(engine, net, incumbent, candidate, dev, card):
     return launches, out, captured
 
 
-def pit_kernels_phase(captured, card):
-    """The pool-tier kernels at the pit's shape (64 games, K=128, M=1,602,
-    V=16, no recycling), bitwise against their plain versions: on the tree
-    that each first half-batch search started from (carried by reuse),
-    grown by 1, 4, 10 or 25 pipelined waves of that search in turn, #2 and
-    #3 on the pending wave and #4; then on the tree of ply PIT_CHECK_PLY
-    grown by PIT_CHECK_WAVES waves, timed (`launch_ms` over fresh copies
-    of the tree) with their bound and chain floor.  Returns ({kernel: (ms,
-    plain ms, bound ms, bound by)}, {kernel: floor ms})."""
+def grow_pipelined(mcts, params, tree, waves, pending=None):
+    """`waves` pipelined waves of `mcts`'s search on `tree` (in place), from
+    `pending` (default: nothing pending).  Returns the pending wave."""
+    from tak_tpu_torch.mcts.tree_kernels import Pending
+
+    B, _, K = tree.edge_n.shape
+    if pending is None:
+        pending = Pending.zeros(B, mcts.config.wave_size, K, tree.n0.device)
+    for _ in range(waves):
+        pending = mcts._wave_pipelined(params, tree, pending)
+    sync()
+    return pending
+
+
+def pool_kernel_runs(mcts, tree, pending):
+    """#2 on the pending wave, #4 (the merged kernel's plain version with
+    nothing pending) and #3 on `tree`'s search shape: {kernel: (kernel
+    run, plain run, descends, backs up)} and the empty pending wave."""
     from tak_tpu_torch.mcts.tree_kernels import (
         Pending,
         backup_descend_plain,
@@ -1994,72 +2051,55 @@ def pit_kernels_phase(captured, card):
         expand_backup_wave,
     )
 
-    mcts = captured["mcts"]
     scfg = mcts.config
-    V = scfg.wave_size
+    V, rc = scfg.wave_size, scfg.recycle
     kargs = dict(base=scfg.exploration_base, init=scfg.exploration_init,
-                 recycle=False)
+                 recycle=rc)
+    B, _, K = tree.edge_n.shape
+    zero = Pending.zeros(B, V, K, tree.n0.device)
+    runs = {
+        "backup_descend_wave": (
+            lambda t: backup_descend_wave(t, pending, **kargs),
+            lambda t: backup_descend_plain(t, pending, **kargs), True, True),
+        "descend_wave": (
+            lambda t: descend_wave(t, V, **kargs),
+            lambda t: backup_descend_plain(t, zero, **kargs), True, False),
+        "expand_backup_wave": (
+            lambda t: expand_backup_wave(t, pending, recycle=rc),
+            lambda t: expand_backup_plain(t, pending, recycle=rc),
+            False, True),
+    }
+    return runs, zero, kargs
 
-    def grow(params, tree, waves):
-        B, _, K = tree.edge_n.shape
-        pending = Pending.zeros(B, V, K, tree.n0.device)
-        for _ in range(waves):
-            pending = mcts._wave_pipelined(params, tree, pending)
+
+def hold_pool_kernels(mcts, tree, pending, what):
+    """#2, #4 and #3 on copies of `tree`, each bitwise against its plain
+    version.  Returns {kernel: (tree after, descends, backs up, leaves)}."""
+    runs, _, _ = pool_kernel_runs(mcts, tree, pending)
+    checks = {}
+    for name, (run_k, run_p, descend, backup) in runs.items():
+        tk, tp = tree.clone(), tree.clone()
+        out_k, out_p = run_k(tk), run_p(tp)
         sync()
-        return pending
+        compare_trees(tk, tp, f"{name} {what}")
+        if out_k is not None and not all(bool((x == y).all())
+                                         for x, y in zip(out_k, out_p)):
+            fail(f"{name} {what}: leaves/created differ")
+        checks[name] = (tk, descend, backup, out_k[0] if out_k else None)
+    return checks
 
-    def held(tree, pending):
-        """#2, #4 and #3 on copies of `tree`, each against its plain
-        version.  Returns ({kernel: (tree after, descends, backs up,
-        leaves)}, {kernel: (kernel run, plain run, descends, backs up)},
-        the empty pending wave)."""
-        B, _, K = tree.edge_n.shape
-        zero = Pending.zeros(B, V, K, tree.n0.device)
-        runs = {
-            "backup_descend_wave": (
-                lambda t: backup_descend_wave(t, pending, **kargs),
-                lambda t: backup_descend_plain(t, pending, **kargs), True,
-                True),
-            "descend_wave": (
-                lambda t: descend_wave(t, V, **kargs),
-                lambda t: backup_descend_plain(t, zero, **kargs), True, False),
-            "expand_backup_wave": (
-                lambda t: expand_backup_wave(t, pending, recycle=False),
-                lambda t: expand_backup_plain(t, pending, recycle=False),
-                False, True),
-        }
-        checks = {}
-        for name, (run_k, run_p, descend, backup) in runs.items():
-            tk, tp = tree.clone(), tree.clone()
-            out_k, out_p = run_k(tk), run_p(tp)
-            sync()
-            compare_trees(tk, tp, f"{name} at the pit's shape")
-            if out_k is not None and not all(bool((x == y).all())
-                                             for x, y in zip(out_k, out_p)):
-                fail(f"{name} at the pit's shape: leaves/created differ")
-            checks[name] = (tk, descend, backup, out_k[0] if out_k else None)
-        return checks, runs, zero
 
-    seen = []
-    for i, (ply, params, tree) in enumerate(captured["trees"]):
-        waves = (1, 4, 10, 25)[i % 4]
-        carried = int(tree.n0.sum())
-        tree = tree.clone()
-        held(tree, grow(params, tree, waves))
-        seen.append(f"ply {ply}: {carried} visits carried, {waves} waves")
-    log("check pool tier at the pit's shape: #2 backup_descend_wave, #4 "
-        "descend_wave and #3 expand_backup_wave bitwise equal to the plain "
-        "versions on the first half-batch's tree of every searched ply but "
-        "the first (" + "; ".join(seen) + ")")
+def time_pool_kernels(mcts, tree, pending, checks):
+    """#2, #4 and #3 on `tree` and its pending wave: the kernel (`launch_ms`
+    over fresh copies of the tree), its plain version, its bound and chain
+    floor.  Returns ({kernel: (ms, plain ms, bound ms, bound by)},
+    {kernel: floor ms}, a description of the chase)."""
+    from tak_tpu_torch.mcts.tree_kernels import backup_descend_wave
 
-    _, params, tree = next(x for x in captured["trees"]
-                           if x[0] == PIT_CHECK_PLY)
-    tree = tree.clone()
+    runs, zero, kargs = pool_kernel_runs(mcts, tree, pending)
     B, M, K = tree.edge_n.shape
     A = tree.root_n.shape[1]
-    carried = int(tree.n0.sum())
-    pending = grow(params, tree, PIT_CHECK_WAVES)
-    checks, runs, zero = held(tree, pending)
+    V = mcts.config.wave_size
     times = {}
     for name, (run_k, run_p, descend, backup) in runs.items():
         copies = iter([tree.clone() for _ in range(20)])
@@ -2072,17 +2112,87 @@ def pit_kernels_phase(captured, card):
         t_plain = cuda_ms(run_p, 1, lambda: tree.clone())
         times[name] = (t_kernel, t_plain, *bound(
             tree_bytes(tree, checks[name][0], V, descend, backup),
-            tree_ops(B, V, A, M, descend, recycle=False)))
+            tree_ops(B, V, A, M, descend, recycle=kargs["recycle"])))
     floors, chase = pool_chain_floors(tree, pending, checks, V)
+    return times, floors, chase
+
+
+def pool_times_line(times, floors):
+    return "; ".join(
+        f"{n} {v[0]:.4f} ms (plain {v[1]:.3f} ms, bound {v[2]:.6f} ms by "
+        f"{v[3]}, chain floor {floors[n]:.4f} ms)" for n, v in times.items())
+
+
+def pit_kernels_phase(captured, card):
+    """The pool-tier kernels at the pit's shape (64 games, K=128, M=1,602,
+    V=16, no recycling), bitwise against their plain versions: on the tree
+    that each first half-batch search started from (carried by reuse),
+    grown by 1, 4, 10 or 25 pipelined waves of that search in turn, #2 and
+    #3 on the pending wave and #4; then on the tree of ply PIT_CHECK_PLY
+    grown by PIT_CHECK_WAVES waves, timed (`launch_ms` over fresh copies
+    of the tree) with their bound and chain floor.  Returns ({kernel: (ms,
+    plain ms, bound ms, bound by)}, {kernel: floor ms})."""
+    mcts = captured["mcts"]
+    V = mcts.config.wave_size
+    seen = []
+    for i, (ply, params, tree) in enumerate(captured["trees"]):
+        waves = (1, 4, 10, 25)[i % 4]
+        carried = int(tree.n0.sum())
+        tree = tree.clone()
+        hold_pool_kernels(mcts, tree, grow_pipelined(mcts, params, tree,
+                                                     waves),
+                          "at the pit's shape")
+        seen.append(f"ply {ply}: {carried} visits carried, {waves} waves")
+    log("check pool tier at the pit's shape: #2 backup_descend_wave, #4 "
+        "descend_wave and #3 expand_backup_wave bitwise equal to the plain "
+        "versions on the first half-batch's tree of every searched ply but "
+        "the first (" + "; ".join(seen) + ")")
+
+    _, params, tree = next(x for x in captured["trees"]
+                           if x[0] == PIT_CHECK_PLY)
+    tree = tree.clone()
+    B, M, K = tree.edge_n.shape
+    A = tree.root_n.shape[1]
+    carried = int(tree.n0.sum())
+    pending = grow_pipelined(mcts, params, tree, PIT_CHECK_WAVES)
+    checks = hold_pool_kernels(mcts, tree, pending, "at the pit's shape")
+    times, floors, chase = time_pool_kernels(mcts, tree, pending, checks)
     log(f"time pool tier at the pit's shape on {card} (B={B} K={K} M={M} "
         f"V={V}, A={A}, recycling off; the tree of ply {PIT_CHECK_PLY}'s "
         f"first half-batch search, {carried} root visits carried by reuse, "
         f"then {PIT_CHECK_WAVES} pipelined waves): "
-        + "; ".join(f"{n} {v[0]:.4f} ms (plain {v[1]:.3f} ms, bound "
-                    f"{v[2]:.6f} ms by {v[3]}, chain floor {floors[n]:.4f} "
-                    "ms)" for n, v in times.items())
-        + f"; {chase}")
+        + pool_times_line(times, floors) + f"; {chase}")
     return times, floors
+
+
+def captured_pool_phase(mcts, params, tree, what, card):
+    """The pool-tier kernels on a tree captured from a path's own search
+    (a copy taken as a search call began, carried by reuse): grown by that
+    search's pipelined waves until the recycled pool is full in every game
+    (at least 2 waves, at most 12), then #2, #4 and #3 held bitwise
+    against their plain versions on it and timed beside their bound.
+    Returns (a shape label, {kernel: (ms, plain ms, bound ms, bound by)},
+    {kernel: floor ms})."""
+    B, M, K = tree.edge_n.shape
+    A = tree.root_n.shape[1]
+    V = mcts.config.wave_size
+    carried = int(tree.n0.sum())
+    tree = tree.clone()
+    pending, waves = None, 0
+    while waves < 12 and not (waves >= 2 and
+                              bool((tree.next_free == M).all())):
+        pending = grow_pipelined(mcts, params, tree, 1, pending)
+        waves += 1
+    if mcts.config.recycle and not bool((tree.next_free == M).all()):
+        fail(f"{what}: pool not full after {waves} waves")
+    label = f"{what}, B={B} K={K} M={M} V={V} A={A}"
+    checks = hold_pool_kernels(mcts, tree, pending, f"at the {label}")
+    times, floors, chase = time_pool_kernels(mcts, tree, pending, checks)
+    log(f"check and time pool tier at the {label} ({carried} root visits "
+        f"carried by reuse, then {waves} pipelined waves, pool full): #2, #4 "
+        f"and #3 bitwise equal to the plain versions; "
+        + pool_times_line(times, floors) + f"; {chase} on {card}")
+    return label, times, floors
 
 
 def train_cli_phase(here, card):
@@ -2254,6 +2364,721 @@ def profile_learner_step(net, variables, examples, card):
     for e in top:
         log(f"  {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} "
             f"[{family(e.key.lower()).split(' (')[0]}] {e.key[:80]}")
+
+
+# ---------------------------------------------------------------------------
+# The ninth slice's paths: the "xla" search path and Gumbel root search,
+# quad-rollout self-play, the dense Net5 head, the playtak bot, the native
+# engine.  Each path is driven from launch counts of 0.
+# ---------------------------------------------------------------------------
+
+def launches_since(before):
+    from tak_tpu_torch.kernels import build as kb
+
+    return {k: v - before.get(k, 0) for k, v in kb.LAUNCHES.items()
+            if v - before.get(k, 0)}
+
+
+def recycle_invariants(tree, sims, what):
+    """`tests/test_recycle.py`'s invariants of a finished search on a fresh
+    tree, for every game at once: the root holds 1 + sims visits and its
+    edges `sims`, no virtual visit or pin is left, every materialized
+    child links back to its edge, `child_count` counts them, and a node's
+    `node_n` snapshot never exceeds its edge's visits."""
+    import torch
+
+    from tak_tpu_torch.mcts.tree import NONE
+
+    B, M, K = tree.edge_n.shape
+    dev = tree.n0.device
+    if not bool((tree.n0 == sims + 1).all()):
+        fail(f"{what}: root counts {tree.n0.tolist()}, expected {sims + 1}")
+    if not bool((tree.root_n.sum(1) == sims).all()):
+        fail(f"{what}: root edges hold {tree.root_n.sum(1).tolist()}")
+    for f in ("virt0", "root_virt", "edge_virt", "node_virt"):
+        if bool(getattr(tree, f).any()):
+            fail(f"{what}: {f} left nonzero")
+    counts = torch.zeros((B, M), dtype=torch.long, device=dev)
+    # root children
+    g, a = torch.nonzero(tree.root_child != NONE, as_tuple=True)
+    c = tree.root_child[g, a].long()
+    counts[:, 0] = (tree.root_child != NONE).sum(1)
+    if not (bool((tree.parent[g, c] == 0).all())
+            and bool((tree.parent_slot[g, c] == NONE).all())
+            and bool((tree.parent_action[g, c] == a).all())
+            and bool((tree.node_n[g, c] <= tree.root_n[g, a]).all())
+            and bool((tree.node_n[g, c] >= 0).all())):
+        fail(f"{what}: a root child does not link back to its action")
+    # edge children of expanded nodes
+    live = (tree.edge_child != NONE) & tree.expanded[:, :, None]
+    g, r, s = torch.nonzero(live, as_tuple=True)
+    c = tree.edge_child[g, r, s].long()
+    counts += live.sum(2)
+    if not (bool((tree.parent[g, c] == r).all())
+            and bool((tree.parent_slot[g, c] == s).all())
+            and bool((tree.node_n[g, c] <= tree.edge_n[g, r, s]).all())):
+        fail(f"{what}: an edge child does not link back to its edge")
+    attached = torch.zeros((B, M), dtype=torch.bool, device=dev)
+    attached[:, 0] = True
+    ga, aa = torch.nonzero(tree.root_child != NONE, as_tuple=True)
+    attached[ga, tree.root_child[ga, aa].long()] = True
+    attached[g, c] = True
+    bad = attached & (tree.child_count.long() != counts)
+    if bool(bad.any()):
+        fail(f"{what}: child_count differs from the materialized children "
+             f"at {int(bad.sum())} nodes")
+    return int(attached.sum())
+
+
+def xla_v1_phase(engine, net6_eval, params6, roots, card):
+    """The "xla" path against the pool-tier kernels at V = 1 (the card's
+    counterpart of `tests/test_recycle.py:207`): the same GAMES roots,
+    6x6, K=32, a recycled X1_POOL-node pool that evicts, the trained Net6
+    in bf16, X1_SIMS waves of one descent; the two trees must be equal in
+    every field, node states, `root_w` and `edge_w` included.  Returns
+    the launch counts of both searches."""
+    import torch
+
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.mcts.search import MCTS, SearchConfig
+
+    trees, secs, counts = {}, {}, {}
+    for backend in ("pallas", "xla"):
+        m = MCTS(engine, net6_eval, SearchConfig(
+            num_sims=X1_SIMS, wave_size=1, max_children=K,
+            node_budget=X1_POOL, recycle=True, backend=backend))
+        want = {"pallas": "pool", "xla": "xla"}[backend]
+        if m.tier != want:
+            fail(f"backend {backend!r} took tier {m.tier!r}")
+        t = m.prepare_root(params6, m.init_batch(roots))
+        sync()
+        kb.reset_launches()
+        t0 = time.perf_counter()
+        trees[backend] = m.run_sims(params6, t)
+        sync()
+        secs[backend] = time.perf_counter() - t0
+        counts[backend] = dict(kb.LAUNCHES)
+    compare_trees(trees["xla"], trees["pallas"],
+                  "the xla path against the pool-tier kernels at V=1")
+    compare_states(trees["xla"].state, trees["pallas"].state,
+                   "the node states of the V=1 trees")
+    evicted = int((trees["xla"].next_free == X1_POOL).sum())
+    if evicted != GAMES:
+        fail(f"V=1 check: only {evicted} of {GAMES} pools filled up")
+    recycle_invariants(trees["xla"], X1_SIMS, "V=1 xla tree")
+    want_pool = {"descend_wave": 1, "backup_descend_wave": X1_SIMS - 1,
+                 "expand_backup_wave": 1, "fused_step": X1_SIMS}
+    if counts["pallas"] != want_pool:
+        fail(f"V=1 pool-tier launches {counts['pallas']}, want {want_pool}")
+    if counts["xla"] != {"fused_step": X1_SIMS}:
+        fail(f"V=1 xla launches {counts['xla']}: only the leaf steps "
+             "should launch a kernel")
+    log(f"check xla path at V=1: {GAMES} games x {X1_SIMS} waves of one "
+        f"descent, K={K}, a {X1_POOL}-node recycled pool (full in every "
+        f"game), the trained Net6 in bf16: the tree equals the pool-tier "
+        f"kernels' bitwise in every field (root_w, edge_w and node states "
+        f"included); xla {secs['xla']:.2f} s, pool tier "
+        f"{secs['pallas']:.2f} s; launches xla {counts['xla']}, pool tier "
+        f"{counts['pallas']} on {card}")
+    total = collections.Counter(counts["xla"]) + collections.Counter(
+        counts["pallas"])
+    return dict(total)
+
+
+def graph_descent_phase(mcts, tree, what, card, gumbel=None):
+    """The "xla" path's descent iteration replayed as a CUDA graph (its
+    mode on the card) against the same iteration run eagerly (`_graphs`
+    off, as on the CPU): one wave's descents from `tree` (with `gumbel`,
+    the Gumbel root pick) must leave bitwise-equal trees, leaves and
+    created flags, in the capturing call and in a replay on the tree
+    reset in the captured storage.  Both modes are timed on that tree.
+    Returns (graph ms, eager ms) for one wave's descents."""
+    from tak_tpu_torch.mcts.tree import TENSOR_FIELDS
+
+    def descend(t):
+        sync()
+        t0 = time.perf_counter()
+        leaves, created = mcts._descend_xla(t, gumbel)
+        sync()
+        return (leaves, created), 1e3 * (time.perf_counter() - t0)
+
+    tg = tree.clone()
+    out_c, capture_ms = descend(tg)
+    after_capture = tg.clone()
+    for f in TENSOR_FIELDS:     # the same tree again in the same storage
+        getattr(tg, f).copy_(getattr(tree, f))
+    out_g, graph_ms = descend(tg)
+    te = tree.clone()
+    mcts._graphs = False
+    try:
+        out_e, eager_ms = descend(te)
+    finally:
+        mcts._graphs = True
+    for got, t, mode in ((out_c, after_capture, "capturing"),
+                         (out_g, tg, "replayed")):
+        compare_trees(t, te, f"{what}: the {mode} graph descent against "
+                      "the eager one")
+        if not all(bool((x == y).all()) for x, y in zip(got, out_e)):
+            fail(f"{what}: {mode} graph descent: leaves/created differ")
+    log(f"check xla descent as CUDA graphs against eager ({what}): one wave "
+        f"of {mcts.config.wave_size} descents in {tree.n0.shape[0]} games, "
+        f"trees, "
+        f"leaves and created flags bitwise equal when capturing and "
+        f"replayed; graph {graph_ms:.1f} ms (capturing {capture_ms:.1f} "
+        f"ms), eager {eager_ms:.1f} ms on {card}")
+    return graph_ms, eager_ms
+
+
+def xla_selfplay_phase(engine, eval_fn, params, dev, card, pool_rate):
+    """Self-play on the "xla" path at the reference config for one searched
+    move (`backend="xla"`: 32 games, 10,240 sims, wave 256, K=32, the
+    recycled 1,280-node pool): the tier, visit conservation and the
+    recycling invariants of the searched trees, sims/s and ms per wave
+    beside the pool tier's sims/s of this run; then the descent's CUDA
+    graphs against the eager descent on move 1's searched tree."""
+    from tak_tpu_torch.mcts.search import MCTS
+
+    launches, lines, _, tree = selfplay_phase(
+        engine, eval_fn, params, dev, card, "self-play on the xla path", 1,
+        backend="xla", check_tier="xla")
+    nodes = recycle_invariants(tree, SIMS, "xla self-play tree")
+    mcts = MCTS(engine, eval_fn, make_actor(engine, eval_fn, dev, 1,
+                                            backend="xla").search_config)
+    graph_ms, eager_ms = graph_descent_phase(
+        mcts, tree, "move 1's searched tree", card)
+    waves = SIMS // WAVE
+    sec = float(lines[0].split(": ")[1].split(" s,")[0])
+    rate = GAMES * SIMS / sec
+    want = {"fused_step"}
+    if set(launches) != want:
+        fail(f"xla self-play launched {launches}: the search should launch "
+             "only leaf steps (the win scan and the move tail step too)")
+    out = {"sims_per_s": rate, "ms_per_wave": 1e3 * sec / waves,
+           "pool_sims_per_s": pool_rate, "descent_graph_ms": graph_ms,
+           "descent_eager_ms": eager_ms}
+    log(f"xla path at the reference self-play config: {GAMES} games x "
+        f"{SIMS} sims, {waves} waves of {WAVE}, one move in {sec:.2f} s: "
+        f"{rate:,.0f} sims/s, {out['ms_per_wave']:.1f} ms per wave (the pool "
+        f"tier: {pool_rate:,.0f} sims/s, {pool_rate / rate:.1f} times as "
+        f"fast); {nodes} attached nodes, invariants hold; launches "
+        f"{launches} on {card}")
+    return launches, out
+
+
+def sequential_halving_visits(seq):
+    """The root visit multiset that the schedule `seq` implies on a fresh
+    tree: each descent takes an action whose count equals its target."""
+    have = collections.Counter()
+    for t in seq:
+        if t > 0:
+            if have[t] == 0:
+                return None
+            have[t] -= 1
+        have[t + 1] += 1
+    return sorted(have.elements(), reverse=True)
+
+
+def gumbel_phase(engine, eval_fn, params, dev, card):
+    """Gumbel self-play at the reference config with gumbel_m=16, cut to
+    GUMBEL_MOVES searched moves: the tier, the root visits of move 1's
+    fresh trees against the sequential-halving schedule, targets summing
+    to 65535 within the rounding of their entries, legal moves; sims/s;
+    then the descent's CUDA graphs against the eager descent, with the
+    Gumbel root pick, on move 1's searched tree."""
+    import torch
+
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.types import ONGOING
+
+    actor = make_actor(engine, eval_fn, dev, GUMBEL_MOVES, gumbel_m=16)
+    if actor.mcts.tier != "xla":
+        fail(f"gumbel self-play took tier {actor.mcts.tier}")
+    mcts = actor.mcts
+    implied = sequential_halving_visits(mcts._considered_seq)
+    if implied is None or sum(implied) != mcts.config.num_waves * WAVE:
+        fail("the gumbel schedule is not a sequential halving")
+    orig_run, orig_sel = mcts.run_sims_gumbel, mcts.select_moves_gumbel
+    checked, times = [], []
+
+    def run(p, t, gen):
+        fresh = not checked
+        sync()
+        t0 = time.perf_counter()
+        out, g = orig_run(p, t, gen)
+        sync()
+        times.append(time.perf_counter() - t0)
+        if fresh:
+            for i in range(GAMES):
+                got = sorted(out.root_n[i][out.root_n[i] > 0].tolist(),
+                             reverse=True)
+                if got != implied:
+                    fail(f"gumbel game {i}: root visits {got[:20]} do not "
+                         f"follow the schedule {implied[:20]}")
+            checked.append((out.clone(), g))
+        return out, g
+
+    def select(t, g):
+        a = orig_sel(t, g)
+        roots = t.state[:, 0]
+        ok = engine.legal_mask(roots)[torch.arange(GAMES, device=dev),
+                                      a.long()]
+        if not bool((ok | (roots.result != ONGOING)).all()):
+            fail(f"gumbel self-play chose an illegal move: {a.tolist()}")
+        return a
+
+    mcts.run_sims_gumbel, mcts.select_moves_gumbel = run, select
+    mcts.add_noise = None      # gumbel mode draws no Dirichlet noise
+    kb.reset_launches()
+    examples = actor.run(params, seed=SEED, log=lambda m: log(f"  {m}"))
+    launches = dict(kb.LAUNCHES)
+    A = engine.num_actions
+    searched = [e for e in examples if e.visits.max() != 1000]
+    for e in searched:
+        if abs(int(e.visits.sum()) - 65535) > len(e.visits) / 2 + 1:
+            fail(f"gumbel targets sum to {int(e.visits.sum())} over "
+                 f"{len(e.visits)} entries")
+    if len(times) != GUMBEL_MOVES or not searched:
+        fail(f"gumbel self-play searched {len(times)} moves, "
+             f"{len(searched)} examples")
+    rates = [GAMES * mcts.config.num_waves * WAVE / s for s in times]
+    graph_descent_phase(mcts, checked[0][0], "gumbel move 1's searched tree",
+                        card, gumbel=checked[0][1])
+    log(f"gumbel self-play (gumbel_m=16, {GAMES} games x {SIMS} sims, wave "
+        f"{WAVE}, K={K}, xla path): {GUMBEL_MOVES} moves, "
+        + ", ".join(f"move {i + 1} {s:.2f} s ({r:,.0f} sims/s)"
+                    for i, (s, r) in enumerate(zip(times, rates)))
+        + f"; move 1's {GAMES} fresh roots hold the schedule's visits "
+        f"({implied[:4]}...); {len(searched)} examples, targets sum to "
+        f"65535 within rounding (A={A}); launches {launches} on {card}")
+    return launches, {"sims_per_s": rates[-1], "move_s": times}
+
+
+def quad_phase(engine, eval_fn, params, dev, card):
+    """Sequential quad-rollout self-play (workers=1, quad_rollout_plies=6,
+    the reference search config), cut to QUAD_PLIES plies: the #1-#4
+    launches of every search call from the config (4 calls a move below
+    ply 6), each early move's search adding 4x the root visits of a late
+    one (the examples also hold the visits that tree reuse carried in);
+    sims/s.  Then #2-#4 at this one-game shape (`captured_pool_phase`),
+    on the tree that ply 0's second search call started from."""
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.mcts.search import SearchConfig
+    from tak_tpu_torch.selfplay import SelfPlayActor, SelfPlayConfig
+
+    actor = SelfPlayActor(engine, eval_fn, SelfPlayConfig(
+        games=1, workers=1, max_plies=QUAD_PLIES, quad_rollout_plies=6,
+        search=SearchConfig(num_sims=SIMS, wave_size=WAVE, max_children=K,
+                            recycle=True)), device=dev)
+    mcts = actor.mcts
+    cfg = mcts.config
+    if mcts.tier != "pool" or cfg.max_nodes != POOL:
+        fail(f"quad self-play: tier {mcts.tier}, {cfg}")
+    chunk = -(-cfg.scan_chunk // WAVE)
+    chunks = -(-cfg.num_waves // chunk)
+    per_call = {"descend_wave": chunks,
+                "backup_descend_wave": chunks * (chunk - 1),
+                "expand_backup_wave": chunks,
+                "fused_step": chunks * chunk}
+    calls, gained, orig = [], collections.Counter(), mcts.run_sims
+    captured = []
+
+    def run(p, t):
+        if len(calls) == 1:   # ply 0's second search: visits carried in
+            captured.append(t.clone())
+        before, n0 = dict(kb.LAUNCHES), int(t.n0[0])
+        out = orig(p, t)
+        got = launches_since(before)
+        if got != per_call:
+            fail(f"quad self-play: a search call launched {got}, the config "
+                 f"gives {per_call}")
+        ply = int(out.state.ply[0, 0])
+        calls.append(ply)
+        gained[ply] += int(out.n0[0]) - n0
+        return out
+
+    mcts.run_sims = run
+    kb.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    examples = actor.run(params, seed=SEED, log=lambda m: log(f"  {m}"))
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(kb.LAUNCHES)
+    per_ply = collections.Counter(calls)
+    for ply, n in per_ply.items():
+        if n != (4 if ply < 6 else 1):
+            fail(f"quad self-play: ply {ply} searched {n} times")
+        if gained[ply] != n * cfg.num_waves * WAVE:
+            fail(f"quad self-play: ply {ply}'s searches added {gained[ply]} "
+                 "root visits")
+    early = [int(e.visits.sum()) for e in examples if int(e.state["ply"]) < 6]
+    late = [int(e.visits.sum()) for e in examples if int(e.state["ply"]) >= 6]
+    if (not early or not late or min(early) < 4 * SIMS
+            or len(examples) != len(per_ply)):
+        fail(f"quad self-play: example visits early {early}, late {late}")
+    sims = sum(s for _, s in actor.move_times)
+    rate = sims / sum(t for t, _ in actor.move_times)
+    log(f"quad-rollout self-play (workers 1, quad_rollout_plies 6, {SIMS} "
+        f"sims, wave {WAVE}, K={K}, {POOL}-node pool; cut: {QUAD_PLIES} "
+        f"plies): searches per ply {dict(sorted(per_ply.items()))}, each "
+        f"call {per_call}; root visits added per ply "
+        f"{dict(sorted(gained.items()))}; example visits (carried ones "
+        f"included) early {early}, late {late}; "
+        f"{rate:,.0f} sims/s ({wall:.2f} s in all); launches {launches} on "
+        f"{card}")
+    shape = captured_pool_phase(mcts, params, captured[0],
+                                "quad search's shape", card)
+    return launches, {"sims_per_s": rate}, shape
+
+
+def dense_net5_phase(dev, card):
+    """The dense Net5 head (5x5, 8 x 128, 1,575 legacy moves, weights from
+    a seed): the card's float32 forward against the CPU's (TF32 off), a
+    pool-tier self-play search of 2 moves with its kernel counts, one
+    `Network.train` pass over the committed 5x5 buffer; examples/s.  Then
+    #2-#4 at this 5x5 shape (`captured_pool_phase`), on the tree that
+    move 2's search started from."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tak_tpu_torch.engine.core import get_engine
+    from tak_tpu_torch.examples import ReplayBuffer
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.model.network import CHUNK_SIZE, Network
+    from tak_tpu_torch.model.resnet import NetConfig
+
+    engine = get_engine(5)
+    cfg = NetConfig(n=5, filters=128, blocks=8, policy_head="dense")
+    if cfg.policy_size != 1575:
+        fail(f"dense head of {cfg.policy_size} moves")
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    variables = Network(engine, cfg, device="cpu").init_variables(SEED)
+    rng = np.random.default_rng(SEED)
+    states = playout_states(engine, 256, 30, rng, dev)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card_p, card_v = Network(engine, f32, device=dev).policy_eval_states(
+            variables, states)
+        cpu_p, cpu_v = Network(engine, f32, device="cpu").policy_eval_states(
+            variables, states.map(lambda x: x.cpu()))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    legacy = torch.as_tensor(engine.tables.legacy_actions).long()
+    off = torch.ones(engine.num_actions, dtype=torch.bool)
+    off[legacy] = False
+    if bool(card_p.cpu()[:, off].any()):
+        fail("the dense head put mass outside the legacy moves")
+    err_p = float((card_p.cpu()[:, legacy].log()
+                   - cpu_p[:, legacy].log()).abs().max())
+    err_v = float((card_v.cpu() - cpu_v).abs().max())
+    if not (err_p <= DENSE_TOL and err_v <= DENSE_TOL):
+        fail(f"dense Net5 float32 forward: card against CPU log-prob "
+             f"{err_p:.2e}, value {err_v:.2e} (tolerance {DENSE_TOL})")
+    log(f"check dense Net5 ({describe(f32)}, 1,575 legacy moves, seeded "
+        f"weights), 256 playout rows: the card's float32 forward (TF32 off) "
+        f"against the CPU's: log-probabilities within {err_p:.2e}, values "
+        f"{err_v:.2e} (tolerance {DENSE_TOL}); no mass off the legacy list")
+
+    net = Network(engine, cfg, device=dev)
+
+    def dense_eval(p, s):
+        return net.policy_eval_states(p, s)
+
+    actor = make_actor(engine, dense_eval, dev, DENSE_MOVES)
+    mcts = actor.mcts
+    if mcts.tier != "pool":
+        fail(f"dense-head self-play took tier {mcts.tier}")
+    captured, orig_run = [], mcts.run_sims
+
+    def run(p, t):   # keep the tree the last search call started from
+        captured[:] = [t.clone()]
+        return orig_run(p, t)
+
+    mcts.run_sims = run
+    kb.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    actor.run(variables, seed=SEED, log=lambda m: log(f"  {m}"))
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(kb.LAUNCHES)
+    scfg = actor.search_config
+    chunk = -(-scfg.scan_chunk // scfg.wave_size)
+    chunks = -(-scfg.num_waves // chunk)
+    moves = len(actor.move_times)
+    want = {"descend_wave": moves * chunks, "expand_backup_wave":
+            moves * chunks, "backup_descend_wave": moves * chunks * (chunk - 1)}
+    if moves != DENSE_MOVES or any(launches.get(k) != v
+                                   for k, v in want.items()):
+        fail(f"dense-head search: {moves} moves, launches {launches}, want "
+             f"{want}")
+    rate = GAMES * SIMS * moves / sum(t for t, _ in actor.move_times)
+
+    buf = ReplayBuffer()
+    buf.load(engine, NET5_BUFFER)
+    _, t_warm, _ = train_run(net, variables, buf.examples[:CHUNK_SIZE],
+                             np.random.default_rng(0), "dense Net5 warm-up",
+                             chunks_in_step=1)
+    _, t_train, steps = train_run(net, variables, buf.examples,
+                                  np.random.default_rng([0, 5]),
+                                  "dense Net5 learner")
+    chunks_done = len(buf) // CHUNK_SIZE
+    ex_rate = chunks_done * CHUNK_SIZE / t_train
+    log(f"dense Net5 ({describe(cfg)}): self-play search (5x5, {GAMES} games "
+        f"x {SIMS} sims, wave {WAVE}, K={K}, pool tier) {DENSE_MOVES} moves "
+        f"in {wall:.2f} s, {rate:,.0f} sims/s, launches {launches}; one "
+        f"`Network.train` pass over {NET5_BUFFER} ({len(buf)} examples, "
+        f"{chunks_done} chunks, {len(steps)} steps) in {t_train:.3f} s: "
+        f"{ex_rate:,.0f} examples/s (warm-up {t_warm:.2f} s) on {card}")
+    shape = captured_pool_phase(mcts, variables, captured[0],
+                                "dense Net5 search's shape (5x5)", card)
+    return launches, {"examples_per_s": ex_rate, "sims_per_s": rate,
+                      "err_logp": err_p, "err_value": err_v}, shape
+
+
+class ScriptedPlaytakServer:
+    """A playtak.com stand-in on 127.0.0.1 for one guest game of BOT_PLIES
+    plies: it answers the bot's moves with seeded legal replies (tracked
+    on a port `Game` on the CPU), waits BOT_REPLY_S before each reply so
+    that the bot's reads time out and it ponders, then ends the game."""
+
+    def __init__(self, n, game_no=5):
+        import socket
+        import threading
+
+        self.n, self.no = n, game_no
+        self.listener = socket.create_server(("127.0.0.1", 0))
+        self.port = self.listener.getsockname()[1]
+        self.received, self.error = [], None
+        self.thread = threading.Thread(target=self._serve, daemon=True)
+        self.thread.start()
+
+    def _serve(self):
+        import numpy as np
+
+        from tak_tpu_torch.game import Game
+        from tak_tpu_torch.playtak.protocol import move_to_wire, wire_to_move
+        from tak_tpu_torch.types import ONGOING
+
+        try:
+            conn, _ = self.listener.accept()
+            conn.settimeout(120)
+            rfile = conn.makefile("r", encoding="utf-8", newline="\n")
+
+            def send(s):
+                conn.sendall((s + "\n").encode())
+
+            def expect(prefix):
+                line = rfile.readline().strip()
+                self.received.append(line)
+                if not line.startswith(prefix):
+                    raise AssertionError(f"expected {prefix!r}, got {line!r}")
+                return line
+
+            expect("Login Guest")
+            send("Welcome tester!")
+            expect(f"Seek {self.n} 600 10 W 4")
+            send(f"Game Start {self.no} {self.n} bot vs foe white 600")
+            game = Game.with_komi(self.n, 2, device="cpu")
+            rng = np.random.default_rng(SEED)
+            while True:
+                words = expect(f"Game#{self.no} ").split()[1:]
+                game.play(wire_to_move(words))      # raises if illegal
+                if game.result != ONGOING or game.ply >= BOT_PLIES:
+                    break
+                time.sleep(BOT_REPLY_S)
+                acts = game.legal_actions()
+                reply = int(acts[rng.integers(len(acts))])
+                game.play_action(reply)
+                send(move_to_wire(self.no, game.engine.tables.action_to_move(
+                    reply)))
+                if game.result != ONGOING:
+                    break
+            self.plies = game.ply
+            send(f"Game#{self.no} Over 0-R")
+            conn.close()
+        except Exception as e:  # surfaced by the phase
+            self.error = e
+        finally:
+            self.listener.close()
+
+
+def bot_phase(engine, net6, params6, dev, card):
+    """The playtak bot over a local scripted server (127.0.0.1): the
+    trained Net6, the `Player` at its defaults (wave 64, K=128, 131,072
+    nodes), time_to_think BOT_THINK_S, pondering while the server waits.
+    Checks the lines the server received, at least two ponder ticks, the
+    analysis PTN and the examples file read back through the port's codec,
+    and that #1, #8 and #9 launched.  Rollouts per think, ms per wave."""
+    from tak_tpu_torch.examples import ReplayBuffer
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.playtak.bot import BotConfig, PlaytakBot
+    from tak_tpu_torch.playtak.protocol import TcpTransport
+
+    work = Path(tempfile.mkdtemp(prefix="playtak_"))
+    thinks, ponders = [], []
+
+    class Bot(PlaytakBot):
+        def _new_game(self):
+            player = super()._new_game()
+            cfg = player.mcts.config
+            if (player.mcts.tier != "hbm" or cfg.wave_size != P_WAVE
+                    or cfg.max_children != P_K or cfg.max_nodes != P_POOL):
+                fail(f"the bot's Player: tier {player.mcts.tier}, {cfg}")
+            inner = player.rollout
+
+            def rollout(waves=1):
+                t0 = time.perf_counter()
+                sims = inner(waves)
+                sync()
+                (thinks if self._thinking else ponders).append(
+                    (sims, time.perf_counter() - t0))
+                return sims
+
+            player.rollout = rollout
+            return player
+
+        def _choose_move(self, player, last):
+            self._thinking = True
+            n0 = len(thinks)
+            out = super()._choose_move(player, last)
+            self._thinking = False
+            if out[1]:
+                think_counts.append(sum(s for s, _ in thinks[n0:]))
+            return out
+
+    think_counts = []
+    bot = Bot(engine, net6.policy_eval_states, params6, BotConfig(
+        size=N, komi=2, time_to_think=BOT_THINK_S, workdir=str(work)),
+        device=dev)
+    bot._thinking = False
+    server = ScriptedPlaytakServer(N)
+    kb.reset_launches()
+    transport = TcpTransport(host="127.0.0.1", port=server.port, timeout=0.2)
+    t0 = time.perf_counter()
+    try:
+        bot.run(transport, max_games=1, log=lambda m: log(f"  bot: {m}"))
+    finally:
+        transport.close()
+    wall = time.perf_counter() - t0
+    server.thread.join(timeout=60)
+    launches = dict(kb.LAUNCHES)
+    if server.thread.is_alive() or server.error is not None:
+        fail(f"scripted playtak server: {server.error}")
+    moves = server.received[3:]
+    if server.received[:3] != ["Login Guest", f"Seek {N} 600 10 W 4",
+                               "Game#5 P A1"] or len(moves) < 3:
+        fail(f"the server received {server.received}")
+    if len(ponders) < 2 or not think_counts:
+        fail(f"bot: {len(ponders)} ponder ticks, thinks {think_counts}")
+    for name in ("fused_step", "descend_wave_hbm", "expand_backup_wave_hbm"):
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched by the bot")
+    games = list((work / "_playtak_games").iterdir())
+    data = list((work / "_examples").iterdir())
+    if len(games) != 1 or len(data) != 1:
+        fail(f"bot artifacts: {games}, {data}")
+    text = games[0].read_text()
+    if '[Player1 "bot"]' not in text or "a1" not in text:
+        fail(f"bot analysis PTN:\n{text}")
+    buf = ReplayBuffer()
+    buf.load(engine, str(data[0]))
+    # an example for each searched move, and for each opponent move made
+    # while a (pondered) tree stood
+    if len(buf) < len(think_counts) or any(
+            e.result != (-1.0 if int(e.state["to_move"]) == 0 else 1.0)
+            for e in buf.examples):
+        fail(f"bot examples: {len(buf)} for {len(think_counts)} searched "
+             "moves, or results not the server's 0-R")
+    waves = thinks + ponders
+    ms_wave = 1e3 * sum(t for _, t in waves) / len(waves)
+    out = {"rollouts_per_think": sum(think_counts) / len(think_counts),
+           "ms_per_wave": ms_wave, "ponder_ticks": len(ponders)}
+    log(f"playtak bot over a scripted local server ({N}x{N}, the trained "
+        f"Net6, Player defaults, time_to_think {BOT_THINK_S} s): "
+        f"{server.plies} plies in {wall:.2f} s, lines {server.received}; "
+        f"rollouts per think {think_counts} (mean "
+        f"{out['rollouts_per_think']:,.0f}), {len(ponders)} ponder ticks, "
+        f"{ms_wave:.2f} ms per wave; analysis {len(text)} chars, "
+        f"{len(buf)} examples read back; launches {launches} on {card}")
+    return launches, out
+
+
+def native_replay_phase(engine, dev, card):
+    """NATIVE_GAMES seeded random playouts on the native C++ engine
+    (`tak_tpu_torch.native`), their moves replayed through the port's
+    batched step on the card (kernel #1): results, plies, reserves and
+    boards (heights, tops, every stack level) must be equal."""
+    import numpy as np
+    import torch
+
+    from tak_tpu_torch import native
+    from tak_tpu_torch.kernels import build as kb
+
+    if not native.available():
+        fail("the native takcore library does not load or build here")
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    games, seqs = [], []
+    for _ in range(NATIVE_GAMES):
+        g = native.NativeGame(N)
+        seq = []
+        while g.result == 0 and len(seq) < NATIVE_MAX_PLIES:
+            acts = g.legal_actions()
+            a = int(acts[rng.integers(len(acts))])
+            g.play_action(a)
+            seq.append(a)
+        games.append(g)
+        seqs.append(seq)
+    t_native = time.perf_counter() - t0
+    T = max(len(s) for s in seqs)
+    acts = np.zeros((NATIVE_GAMES, T), np.int32)
+    for i, s in enumerate(seqs):
+        acts[i, :len(s)] = s
+    lens = torch.as_tensor([len(s) for s in seqs], device=dev)
+    acts = torch.as_tensor(acts, device=dev)
+    kb.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    states = engine.initial_batch(NATIVE_GAMES, 0, dev)
+    for p in range(T):
+        states = engine.step(states, acts[:, p], p < lens)
+    sync()
+    t_card = time.perf_counter() - t0
+    launches = dict(kb.LAUNCHES)
+    if launches != {"fused_step": T}:
+        fail(f"native replay launched {launches}, want {T} fused steps")
+    host = states.to_numpy()
+    for i, g in enumerate(games):
+        heights, tops, colors = g.board_arrays()
+        ok = (int(host["result"][i]) == g.result
+              and int(host["ply"][i]) == g.ply
+              and (int(host["stones"][i][0]), int(host["caps"][i][0]),
+                   int(host["stones"][i][1]), int(host["caps"][i][1]))
+              == g.reserves()
+              and np.array_equal(host["heights"][i], heights)
+              and np.array_equal(host["tops"][i], tops)
+              and all((int(host["stacks"][i][s, h // 32]) >> (h % 32)) & 1
+                      == colors[s][h] for s in range(N * N)
+                      for h in range(heights[s])))
+        if not ok:
+            fail(f"native replay: game {i} differs after {len(seqs[i])} "
+                 "plies")
+    results = collections.Counter(g.result for g in games)
+    log(f"check native replay: {NATIVE_GAMES} seeded {N}x{N} playouts on the "
+        f"native engine ({native.LIB_PATH.parent.name}/"
+        f"{native.LIB_PATH.name}; "
+        f"{t_native:.2f} s, up to {T} plies, results {dict(results)}) "
+        f"replayed through the batched step on the card ({T} launches of "
+        f"#1 in {t_card:.3f} s): results, plies, reserves and boards equal "
+        f"on {card}")
+    return launches
 
 
 def make_actor(engine, eval_fn, dev, moves, **search_options):
@@ -2503,6 +3328,31 @@ def main(do_profile: bool = False):
                                                 dev, card)
     pit_times, pit_floors = pit_kernels_phase(captured, card)
     t_cli = train_cli_phase(here, card)
+
+    # ---- 6h-6n. the xla and Gumbel search paths, quad rollouts, the dense
+    # head, the playtak bot, the native engine -------------------------------
+    x1_launches = xla_v1_phase(engine, net6.policy_eval_states, vars6, roots,
+                               card)
+    x_launches, x_out = xla_selfplay_phase(engine, eval_fn, params, dev, card,
+                                           rate)
+    g_launches, g_out = gumbel_phase(engine, eval_fn, params, dev, card)
+    qd_launches, qd_out, qd_shape = quad_phase(engine, eval_fn, params, dev,
+                                               card)
+    d_launches, d_out, d_shape = dense_net5_phase(dev, card)
+    b_launches, b_out = bot_phase(engine, net6, vars6, dev, card)
+    n_launches = native_replay_phase(engine, dev, card)
+    slice9_line = (
+        f"xla path {x_out['sims_per_s']:,.0f} sims/s "
+        f"({x_out['ms_per_wave']:.1f} ms per wave, a wave's descents "
+        f"{x_out['descent_graph_ms']:.1f} ms as CUDA graphs and "
+        f"{x_out['descent_eager_ms']:.1f} ms eager; pool tier "
+        f"{x_out['pool_sims_per_s']:,.0f}); gumbel self-play "
+        f"{g_out['sims_per_s']:,.0f} sims/s; quad-rollout self-play "
+        f"{qd_out['sims_per_s']:,.0f} sims/s; dense Net5 "
+        f"{d_out['examples_per_s']:,.0f} examples/s (self-play "
+        f"{d_out['sims_per_s']:,.0f} sims/s); bot "
+        f"{b_out['rollouts_per_think']:,.0f} rollouts per think, "
+        f"{b_out['ms_per_wave']:.2f} ms per wave")
     train_line = (
         f"learner Net5 {l5['examples_per_s']:,.0f} examples/s "
         f"({l5['ms_per_chunk']:.2f} ms per chunk); learner Net6 "
@@ -2517,7 +3367,9 @@ def main(do_profile: bool = False):
     # each path was driven from counts of 0 (the packedq move is no path
     # of its own: it launches what the self-play slice launches)
     by_path = {name: dict(zip(PATHS, (c.get(name, 0) for c in (
-        launches, p_launches, f_launches, r_launches, pit_launches))))
+        launches, p_launches, f_launches, r_launches, pit_launches,
+        x1_launches, x_launches, g_launches, qd_launches, d_launches,
+        b_launches, n_launches))))
         for name in REPLACES}
 
     # ---- 7. timing ---------------------------------------------------------
@@ -2625,9 +3477,11 @@ def main(do_profile: bool = False):
         **{name: {"check tree": hbm_times(hbm_check, name),
                   f"player wave {P_WIDE}": hbm_times(wide_times, name)}
            for name in HBM_TIER},
-        **{name: {"pit, B=64 K=128 M=1602 V=16":
-                  {**times(pit_times[name]),
-                   "chain_floor_ms": pit_floors[name]}}
+        **{name: {label: {**times(shape_times[name]),
+                          "chain_floor_ms": shape_floors[name]}
+                  for label, shape_times, shape_floors in (
+                      ("pit, B=64 K=128 M=1602 V=16", pit_times, pit_floors),
+                      qd_shape, d_shape)}
            for name in POOL_TIER},
     }
     kernels = []
@@ -2665,7 +3519,7 @@ def main(do_profile: bool = False):
         + f"{options_line}; {r_line}; "
         + "; ".join(p_lines)
         + f"; Player: {p_rate:,.0f} rollouts/s over {P_MOVES} moves; "
-        + train_line)
+        + train_line + "; " + slice9_line)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,7 @@ binary).
 written by either package.  Scale knobs (--games, --rollouts, --workers,
 --generations) default to the reference's compile-time constants.  The
 run uses the CUDA device unless `--cpu` is given.  Not ported: the JAX
-package's `--sharded` / `--distributed` data-parallel path, and
-`--quad-rollout-plies` above 0.
+package's `--sharded` / `--distributed` data-parallel path.
 """
 
 from __future__ import annotations
@@ -49,7 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--generations", type=int, default=None,
                    help="stop after N generations (default: run forever)")
     p.add_argument("--quad-rollout-plies", type=int, default=0,
-                   help="not ported: only 0 is accepted")
+                   help="sequential self-play (--workers 1): 4x rollouts "
+                        "while ply < N (self_play.rs:19)")
     p.add_argument("--train-passes", type=int, default=1,
                    help="training passes over the buffer per generation "
                         "(1 = reference parity)")
@@ -72,10 +72,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.quad_rollout_plies:
-        raise NotImplementedError(
-            "--quad-rollout-plies is not ported: the port's SelfPlayConfig "
-            "has no quad_rollout_plies (ROADMAP.md)")
     import torch
 
     from ..engine.core import get_engine
@@ -136,6 +132,7 @@ def main(argv=None):
             games=args.games, workers=args.workers, komi=args.komi,
             search=SearchConfig(num_sims=args.rollouts, wave_size=args.wave,
                                 max_children=args.k, recycle=recycle),
+            quad_rollout_plies=args.quad_rollout_plies,
         ),
         pit=PitConfig(
             games=args.pit_games, komi=args.komi,

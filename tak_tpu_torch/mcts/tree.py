@@ -146,3 +146,10 @@ def root_visit_counts(tree: Tree) -> torch.Tensor:
     """Visit count per root action [B, A], the improved policy."""
     return torch.where(tree.root_legal, tree.root_n,
                        torch.zeros_like(tree.root_n))
+
+
+def root_child_rewards(tree: Tree) -> torch.Tensor:
+    """Expected reward per root action [B, A] (0 where unvisited)."""
+    n = tree.root_n
+    return torch.where(n > 0, tree.root_w / torch.clamp(n, min=1).float(),
+                       torch.zeros_like(tree.root_w))

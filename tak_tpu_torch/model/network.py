@@ -12,7 +12,11 @@
     -sum(pi * log_softmax)/B + sum((z - v)^2)/B (network.rs:84-87).  The
     optimizer is rebuilt per call, as upstream does.
   * `variables_from_numpy` / `variables_to_numpy` — flax's nested numpy
-    `{params, batch_stats}` <-> the port's unfolded `state_dict`.
+    `{params, batch_stats}` <-> the port's unfolded `state_dict`, for
+    either policy head.
+  * the dense (legacy Net5) head: `policy_eval` scatters its softmax over
+    the legacy move list into the channel-scheme action space the search
+    reads; training targets and the D4 expansion use the legacy list.
   * `init_variables(seed)` — random weights from a seeded torch.Generator.
   * `Network.load` / `Network.save` — weights files of either package
     (`utils/checkpoint.py`).
@@ -56,13 +60,23 @@ def _conv_names(config: NetConfig):
     return out
 
 
+def _dense_names(config: NetConfig):
+    """flax names of (the policy Dense | None, the value Dense): a dense
+    policy head is created first, so it is `Dense_0` and the value
+    `Dense_1`; with the conv head the value is `Dense_0`."""
+    if config.policy_head == "dense":
+        return "Dense_0", "Dense_1"
+    return None, "Dense_0"
+
+
 def variables_from_numpy(params, batch_stats, config: NetConfig) -> dict:
     """flax {params, batch_stats} (nested dicts of arrays) -> state_dict.
 
-    Conv kernels go from HWIO to OIHW.  The value Dense reads flax's
-    NHWC-flattened (h, w, c) features; the port's Linear reads NCHW
-    (c, h, w), so its weight is permuted."""
+    Conv kernels go from HWIO to OIHW.  The Dense layers read flax's
+    NHWC-flattened (h, w, c) features; the port's Linears read NCHW
+    (c, h, w), so their weights are permuted."""
     n, f = config.n, config.filters
+    pol_name, val_name = _dense_names(config)
 
     def get(tree, path):
         for k in path:
@@ -83,22 +97,29 @@ def variables_from_numpy(params, batch_stats, config: NetConfig) -> dict:
         sd[f"{bn}.running_mean"] = t(bs["mean"])
         sd[f"{bn}.running_var"] = t(bs["var"])
         sd[f"{bn}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
-    pol = params["Conv_1"]
-    sd["policy.weight"] = t(pol["kernel"]).permute(3, 2, 0, 1).contiguous()
-    sd["policy.bias"] = t(pol["bias"])
-    val = params["Dense_0"]
-    w = t(val["kernel"]).reshape(n, n, f, 1).permute(3, 2, 0, 1)
-    sd["value.weight"] = w.reshape(1, f * n * n).contiguous()
-    sd["value.bias"] = t(val["bias"])
+
+    def dense(p):
+        out = t(p["kernel"]).shape[1]
+        w = t(p["kernel"]).reshape(n, n, f, out).permute(3, 2, 0, 1)
+        return w.reshape(out, f * n * n).contiguous(), t(p["bias"])
+
+    if pol_name is None:
+        pol = params["Conv_1"]
+        sd["policy.weight"] = t(pol["kernel"]).permute(3, 2, 0, 1).contiguous()
+        sd["policy.bias"] = t(pol["bias"])
+    else:
+        sd["policy.weight"], sd["policy.bias"] = dense(params[pol_name])
+    sd["value.weight"], sd["value.bias"] = dense(params[val_name])
     return sd
 
 
 def config_of(variables: dict) -> NetConfig:
-    """The widths of a `state_dict` (board size, filters, blocks)."""
+    """The widths of a `state_dict` (board size, filters, blocks, head)."""
     f = variables["stem.weight"].shape[0]
     blocks = len({k.split(".")[1] for k in variables if k.startswith("blocks.")})
     n = math.isqrt(variables["value.weight"].shape[1] // f)
-    return NetConfig(n=n, filters=f, blocks=blocks)
+    head = "dense" if variables["policy.weight"].dim() == 2 else "conv"
+    return NetConfig(n=n, filters=f, blocks=blocks, policy_head=head)
 
 
 def variables_to_numpy(variables: dict) -> dict:
@@ -107,6 +128,7 @@ def variables_to_numpy(variables: dict) -> dict:
     the value weight back to flax's (h, w, c) order)."""
     config = config_of(variables)
     n, f = config.n, config.filters
+    pol_name, val_name = _dense_names(config)
 
     def a(key):
         return variables[key].detach().float().cpu().numpy()
@@ -127,11 +149,20 @@ def variables_to_numpy(variables: dict) -> dict:
                             "bias": a(f"{bn}.bias")})
         put(stats, bpath, {"mean": a(f"{bn}.running_mean"),
                            "var": a(f"{bn}.running_var")})
-    params["Conv_1"] = {"kernel": hwio("policy.weight"),
-                        "bias": a("policy.bias")}
-    w = a("value.weight").reshape(1, f, n, n).transpose(2, 3, 1, 0)
-    params["Dense_0"] = {"kernel": np.ascontiguousarray(w.reshape(n * n * f, 1)),
-                         "bias": a("value.bias")}
+
+    def dense(key):
+        w = a(f"{key}.weight")
+        out = w.shape[0]
+        w = w.reshape(out, f, n, n).transpose(2, 3, 1, 0)
+        return {"kernel": np.ascontiguousarray(w.reshape(n * n * f, out)),
+                "bias": a(f"{key}.bias")}
+
+    if pol_name is None:
+        params["Conv_1"] = {"kernel": hwio("policy.weight"),
+                            "bias": a("policy.bias")}
+    else:
+        params[pol_name] = dense("policy")
+    params[val_name] = dense("value")
     return {"params": params, "batch_stats": stats}
 
 
@@ -155,8 +186,11 @@ def init_variables(config: NetConfig, seed: int = 0) -> dict:
         sd[f"{bn}.running_mean"] = torch.zeros(f)
         sd[f"{bn}.running_var"] = torch.ones(f)
         sd[f"{bn}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
-    sd["policy.weight"] = weight(move_channels(n), f, 3, 3)
-    sd["policy.bias"] = torch.zeros(move_channels(n))
+    if config.policy_head == "dense":
+        sd["policy.weight"] = weight(config.policy_size, f * n * n)
+    else:
+        sd["policy.weight"] = weight(move_channels(n), f, 3, 3)
+    sd["policy.bias"] = torch.zeros(sd["policy.weight"].shape[0])
     sd["value.weight"] = weight(1, f * n * n)
     sd["value.bias"] = torch.zeros(1)
     return sd
@@ -190,6 +224,10 @@ class Network:
             # cuDNN's Hopper convolutions run NHWC: no layout copies
             self.model = self.model.to(memory_format=torch.channels_last)
         self._loaded = None
+        self._legacy = None
+        if self.config.policy_head == "dense":
+            self._legacy = torch.as_tensor(engine.tables.legacy_actions,
+                                           device=self.device).long()
 
     def init_variables(self, seed: int = 0) -> dict:
         return init_variables(self.config, seed)
@@ -220,7 +258,15 @@ class Network:
         """planes [B, n, n, C] -> (policy [B, A] softmax, value [B])."""
         self._prepare(variables)
         logits, value = self.model(planes.to(self.device))
-        return torch.softmax(logits, -1), value
+        probs = torch.softmax(logits, -1)
+        if self._legacy is not None:
+            # the legacy list's softmax into the channel-scheme action
+            # space the search reads (moves outside the list: prior 0)
+            full = torch.zeros((probs.shape[0], self.engine.num_actions),
+                               dtype=probs.dtype, device=probs.device)
+            full[:, self._legacy] = probs
+            probs = full
+        return probs, value
 
     def observe_batch(self, states):
         return observe(self.engine, states)
@@ -249,11 +295,14 @@ class Network:
 
     @cached_property
     def _sym_tables(self):
-        """The inverse D4 permutations of squares [8, n2] and actions
-        [8, A], on the network's device."""
+        """The inverse D4 permutations of squares [8, n2] and of the policy
+        head's actions [8, A] (the legacy list's [8, L] for the dense
+        head), on the network's device."""
         t = self.engine.tables
+        act = (t.legacy_sym_action_inv if self._legacy is not None
+               else t.sym_action_inv)
         return (torch.as_tensor(t.sym_square_inv, device=self.device).long(),
-                torch.as_tensor(t.sym_action_inv, device=self.device).long())
+                torch.as_tensor(act, device=self.device).long())
 
     def _symmetry_expand(self, planes, pi, z):
         """[B, ...] -> [8B, ...] by the D4 group, on the device
@@ -270,13 +319,15 @@ class Network:
     def _build_pi(self, acts, vis):
         """(padded acts [C, W], vis [C, W]) -> [C, A] normalized policy
         targets, built on the device from the sparse (action, visits)
-        pairs (pads are action 0 with 0 visits).  Equals
-        `Example.policy_dense` exactly: visit counts are below 2^24, so
-        the float32 sums are exact."""
+        pairs (pads are action 0 with 0 visits); the dense head keeps the
+        legacy list's columns [C, L].  Equals `Example.policy_dense`
+        exactly: visit counts are below 2^24, so the float32 sums are
+        exact."""
         pi = torch.zeros((acts.shape[0], self.engine.num_actions),
                          dtype=torch.float32, device=acts.device)
         pi.scatter_add_(1, acts.long(), vis)
-        return pi / torch.clamp(vis.sum(-1, keepdim=True), min=1.0)
+        pi = pi / torch.clamp(vis.sum(-1, keepdim=True), min=1.0)
+        return pi if self._legacy is None else pi[:, self._legacy]
 
     @staticmethod
     def _loss(model, planes, pi, z):

@@ -2,14 +2,17 @@
 
   stem: 3x3 conv (input_channels -> filters) + BN + ReLU
   body: `blocks` residual blocks (conv-BN-ReLU-conv-BN + skip + ReLU)
-  policy head: 3x3 conv to move_channels(n) planes, flattened
-               channel-major to action_space(n) logits (net6.rs:98-108);
-               the dense Net5-style head is not ported
+  policy head:
+    * "conv" (Net6-style, net6.rs:56,98-108): 3x3 conv to move_channels(n)
+      planes, flattened channel-major to action_space(n) logits
+    * "dense" (legacy Net5-style, net5.rs:56-62): Linear(filters*n^2 ->
+      legacy_action_space(n)) over the legacy move list (1,575 at 5x5)
   value head: Linear(filters*n^2 -> 1) + tanh
 
 Inputs are NHWC `[B, n, n, C]` like the JAX package; the module runs
-NCHW inside.  The value Linear reads the NCHW-flattened features (c, h, w)
-(`model/network.variables_from_numpy` permutes flax's (h, w, c) weight).
+NCHW inside.  The value Linear and the dense policy Linear read the
+NCHW-flattened features (c, h, w) (`model/network.variables_from_numpy`
+permutes flax's (h, w, c) weights).
 Convolutions and the Linear stay `torch.nn` calls: the JAX package leaves
 them to XLA, not to a Pallas kernel.
 
@@ -28,7 +31,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..sizes import input_channels, move_channels
+from ..sizes import (
+    action_space,
+    input_channels,
+    legacy_action_space,
+    move_channels,
+)
 
 BN_EPS = 1e-5        # flax nn.BatchNorm default
 BN_MOMENTUM = 0.99   # flax's: running = 0.99 * running + 0.01 * batch
@@ -39,6 +47,7 @@ class NetConfig:
     n: int
     filters: int = 128
     blocks: int = 8
+    policy_head: str = "conv"  # "conv" | "dense"
     dtype: torch.dtype = torch.bfloat16
     # inference variant: BatchNorm folded into the conv weights/biases
     fold_bn: bool = False
@@ -47,6 +56,12 @@ class NetConfig:
     def for_size(n: int) -> "NetConfig":
         """Reference defaults: Net5 = 8 blocks, Net6 = 16 blocks."""
         return NetConfig(n=n, blocks=16 if n >= 6 else 8)
+
+    @property
+    def policy_size(self) -> int:
+        if self.policy_head == "dense":
+            return legacy_action_space(self.n)
+        return action_space(self.n)
 
 
 class BatchNorm(nn.Module):
@@ -129,7 +144,12 @@ class TakResNet(nn.Module):
         self.stem_bn = nn.Identity() if config.fold_bn else BatchNorm(f)
         self.blocks = nn.ModuleList(
             ResBlock(f, config.fold_bn) for _ in range(config.blocks))
-        self.policy = Conv(f, move_channels(n))
+        if config.policy_head == "conv":
+            self.policy = Conv(f, move_channels(n))
+        elif config.policy_head == "dense":
+            self.policy = Linear(f * n * n, config.policy_size)
+        else:
+            raise ValueError(f"unknown policy head {config.policy_head!r}")
         self.value = Linear(f * n * n, 1)
 
     def forward(self, planes):
@@ -138,7 +158,11 @@ class TakResNet(nn.Module):
         for block in self.blocks:
             x = block(x)
         B = x.shape[0]
-        # action id = channel * n^2 + row * n + col: NCHW flatten order
-        p = self.policy(x).reshape(B, -1)
-        v = self.value(x.reshape(B, -1))
+        flat = x.reshape(B, -1)
+        if self.config.policy_head == "conv":
+            # action id = channel * n^2 + row * n + col: NCHW flatten order
+            p = self.policy(x).reshape(B, -1)
+        else:
+            p = self.policy(flat)
+        v = self.value(flat)
         return p.float(), torch.tanh(v.float())[:, 0]

@@ -14,6 +14,17 @@ behaviors (train/src/self_play.rs):
   * one example per searched move, completed at game end with +-1/0 from
     the mover's perspective
 
+Gumbel mode (`search.gumbel_m > 0`, `tak_tpu/selfplay.py:118-122`):
+sequential halving replaces PUCT at the root, the Gumbel sample replaces
+Dirichlet noise, the move is `select_moves_gumbel`'s, and the training
+targets are round(gumbel_policy_weights * 65535) instead of visit counts.
+`quad_rollout_plies` (workers == 1 only) searches 4x the rollouts while
+ply < quad_rollout_plies, as the reference's sequential self-play does.
+
+The move tail always reads the dense root targets; the reference reads a
+sparse top-512 and falls back to this dense read on overflow, which gives
+the same examples.
+
 Random draws: the openings use `numpy.random.default_rng(seed)` as the
 JAX package does; root noise and move sampling use a torch.Generator on
 the search device seeded with `seed`.
@@ -54,6 +65,9 @@ class SelfPlayConfig:
     instant_win_scan: bool = True
     tree_reuse: bool = True      # keep the played subtree (play.rs:26-43)
     max_plies: int = 400         # safety valve for pathological games
+    # reference sequential self-play quadruples rollouts while
+    # ply < QUAD_ROLLOUT_PLIES (self_play.rs:19,63-67); workers == 1 only
+    quad_rollout_plies: int = 0
 
 
 class SelfPlayActor:
@@ -61,9 +75,14 @@ class SelfPlayActor:
         self.engine = engine
         self.config = config
         self.device = resolve_device(device)
+        if config.quad_rollout_plies > 0 and config.workers != 1:
+            raise ValueError(
+                "quad_rollout_plies matches the reference's SEQUENTIAL "
+                "self-play (self_play.rs:21-92) and requires workers=1")
+        quad = 4 if config.quad_rollout_plies > 0 else 1
         search = config.search
         if search.node_budget is None:
-            per_move = search.num_sims
+            per_move = search.num_sims * quad
             if search.recycle:
                 budget = min(RECYCLE_POOL, per_move * 2 + 2)
                 budget = max(budget, 4 * search.wave_size)
@@ -72,8 +91,10 @@ class SelfPlayActor:
             else:
                 budget = per_move + 2 + (per_move if config.tree_reuse else 0)
             search = dataclasses.replace(search, node_budget=budget)
+        self._per_move_sims = search.num_sims * quad
         self.search_config = search
         self.mcts = MCTS(engine, eval_fn, search)
+        self._gumbel = search.gumbel_m > 0
         # wall seconds and searched sims of each searched move (last run)
         self.move_times: list[float] = []
 
@@ -97,7 +118,7 @@ class SelfPlayActor:
         flag, read back to the host together."""
         cfg = self.config
         act = torch.as_tensor(active, device=self.device)
-        visits = root_visit_counts(tree)
+        visits = self._root_targets(tree)
         new_states = self.engine.step(states, actions, act)
         if cfg.tree_reuse:
             new_tree = reroot(self.engine, tree, actions, new_states,
@@ -113,6 +134,14 @@ class SelfPlayActor:
                 new_states.result.cpu().numpy(), new_states.ply.cpu().numpy(),
                 any_win.cpu().numpy())
         return new_tree, new_states, host
+
+    def _root_targets(self, tree):
+        """Training targets per root action [B, A] int32: the visit counts,
+        or in Gumbel mode round(gumbel_policy_weights * 65535)."""
+        if self._gumbel:
+            w = self.mcts.gumbel_policy_weights(tree)
+            return torch.round(w * 65535.0).to(torch.int32)
+        return root_visit_counts(tree)
 
     @torch.no_grad()
     def run(self, params, seed: int = 0, log=print, example_sink=None):
@@ -203,15 +232,25 @@ class SelfPlayActor:
                 tree = blank_trees(tree, states, dev(tree_stale))
                 tree_stale[:] = False
             tree = self.mcts.prepare_root(params, tree)
-            noise_mask = dev((plies < cfg.noise_plies) & active)
-            tree = self.mcts.add_noise(gen, tree, cfg.noise_alpha,
-                                       cfg.noise_ratio, noise_mask)
-            tree = self.mcts.run_sims(params, tree)
-            actions = self.mcts.select_moves(
-                gen, tree, dev(plies >= cfg.exploit_plies))
-            move_sims = self.search_config.num_waves * \
+            quad = (cfg.quad_rollout_plies > 0
+                    and int(plies[0]) < cfg.quad_rollout_plies)
+            if self._gumbel:
+                tree, gumbel = self.mcts.run_sims_gumbel(params, tree, gen)
+                actions = self.mcts.select_moves_gumbel(tree, gumbel)
+            else:
+                noise_mask = dev((plies < cfg.noise_plies) & active)
+                tree = self.mcts.add_noise(gen, tree, cfg.noise_alpha,
+                                           cfg.noise_ratio, noise_mask)
+                tree = self.mcts.run_sims(params, tree)
+                if quad:
+                    for _ in range(3):  # 4x total (self_play.rs:63-67)
+                        tree = self.mcts.run_sims(params, tree)
+                actions = self.mcts.select_moves(
+                    gen, tree, dev(plies >= cfg.exploit_plies))
+            factor = 4 if quad else 1
+            move_sims = factor * self.search_config.num_waves * \
                 self.search_config.wave_size
-            sims_done += cfg.search.num_sims * int(active.sum())
+            sims_done += factor * cfg.search.num_sims * int(active.sum())
 
             tree, new_states, host = self._move_tail(tree, states, actions,
                                                      active)
@@ -230,7 +269,7 @@ class SelfPlayActor:
             plies = new_plies.astype(np.int64)
             any_win_host = np.array(any_win_next)
             if cfg.tree_reuse and not self.search_config.recycle:
-                room = self.search_config.max_nodes - self.search_config.num_sims
+                room = self.search_config.max_nodes - self._per_move_sims
                 tree_stale |= tree.next_free.cpu().numpy() > room
 
             reset_mask = np.zeros(B, bool)

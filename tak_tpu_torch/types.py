@@ -51,6 +51,16 @@ def result_winner(result):
     return np.where(is_white, 0, np.where(is_black, 1, -1))
 
 
+def result_is_road(result):
+    """True where a road ended the game (tensors or numpy arrays)."""
+    return (result == WHITE_ROAD) | (result == BLACK_ROAD)
+
+
+def result_is_draw(result):
+    """True where the game ended drawn (tensors or numpy arrays)."""
+    return (result == DRAW_FLATS) | (result == DRAW_REVERSIBLE)
+
+
 @dataclass
 class GameState:
     """Batched Tak positions (W = stack words, n2 = squares)."""

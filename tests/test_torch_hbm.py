@@ -158,8 +158,8 @@ def test_tier_rules():
     with pytest.raises(ValueError):
         JaxMCTS(jengine, None, JaxSearchConfig(
             backend="pallas_hbm", recycle=True, node_budget=64))
-    with pytest.raises(NotImplementedError):
-        MCTS(engine, None, SearchConfig(backend="xla"))
+    # the xla path is ported: asked for, it is the tier
+    assert MCTS(engine, None, SearchConfig(backend="xla")).tier == "xla"
     with pytest.raises(ValueError):
         MCTS(engine, None, SearchConfig(backend="mosaic"))
 
@@ -176,9 +176,10 @@ def test_tier_rules():
 
     assert MAX_HBM_NODES == pallas_hbm.MAX_HBM_NODES
     assert fits_hbm(MAX_HBM_NODES) and not fits_hbm(MAX_HBM_NODES + 1)
-    # a recycling tree too big for the pool tier has no tier in the port
-    with pytest.raises(NotImplementedError):
-        MCTS(engine, None, SearchConfig(recycle=True, node_budget=20_000))
+    # a recycling tree too big for the pool tier fits neither kernel tier:
+    # "auto" falls back to the xla path, as the reference does
+    assert MCTS(engine, None, SearchConfig(
+        recycle=True, node_budget=20_000)).tier == "xla"
 
 
 # ---- hand-built trees: the cases that the CUDA kernels' layout puts at risk

@@ -28,7 +28,8 @@ NEW_MODULES = ("analysis", "errors", "game", "player", "engine.tps",
                "engine.ptn", "mcts.tree_kernels_hbm", "utils.checkpoint",
                "cli.analysis_cli", "cli.tei", "engine.legal_bits",
                "engine.env_rollout", "examples", "pit", "train_loop", "elo",
-               "cli.train", "cli.elo")
+               "cli.train", "cli.elo", "native", "playtak.protocol",
+               "playtak.bot", "cli.playtak_cli")
 
 
 def test_port_imports_no_jax_or_tak_tpu():
@@ -117,3 +118,25 @@ def test_player_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError):
         analysis_cli.main(["3", "random", "--example-game"])
     assert Game(3, device="cpu").state.device.type == "cpu"
+
+
+def test_playtak_entry_points_default_to_the_card(tmp_path):
+    """`PlaytakBot` and the playtak command line run on the CUDA device
+    unless asked for the CPU: without a card they raise (before any
+    connection is opened)."""
+    import torch
+
+    from tak_tpu_torch.cli import playtak_cli
+    from tak_tpu_torch.engine.core import get_engine
+    from tak_tpu_torch.playtak.bot import BotConfig, PlaytakBot
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = BotConfig(size=3, workdir=str(tmp_path))
+    with pytest.raises(RuntimeError):
+        PlaytakBot(get_engine(3), None, None, cfg)
+    with pytest.raises(RuntimeError):
+        playtak_cli.main(["random", "--size", "3", "--host", "127.0.0.1",
+                          "--port", "1", "--log-file", ""])
+    bot = PlaytakBot(get_engine(3), None, None, cfg, device="cpu")
+    assert bot._new_game().game.state.device.type == "cpu"

@@ -169,5 +169,7 @@ def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
     assert meta["generation"] == 2
     assert len(list((tmp_path / "_examples").iterdir())) == 2
     assert len(list((tmp_path / "_models").iterdir())) == 1
-    with pytest.raises(NotImplementedError):
+    # quad rollouts are the sequential (--workers 1) self-play's, as in
+    # the reference: with 2 workers the actor refuses them
+    with pytest.raises(ValueError):
         train_cli.main(args + ["--quad-rollout-plies", "10"])
