@@ -135,6 +135,25 @@ Phases, each fatal on failure:
   6n. 256 seeded playouts on the native engine (`tak_tpu_torch.native`)
      replayed through the batched step on the card (#1): results, plies,
      reserves and boards equal;
+  6o. two ranks on the one card (spawned processes, an explicit gloo group,
+     CUDA tensors; NCCL refuses two ranks on one device):
+     `graft_entry.dryrun_multichip(2, "cuda")` (the flagship Net6 in
+     float32: a `DPLearner` step within 4x a row-permutation control of one
+     process's, and a sharded move equal to one process's), then one
+     self-play move at the reference config, 16 games a rank, with the
+     exact evaluator of `graft_entry.exact_eval`: examples and chosen
+     moves bitwise those of one process, each rank's #2-#4 launches from
+     the config; then two moves of the trained Net6, the second timed (a
+     shared card: not a scaling figure);
+  6p. NCCL at world size 1 in a spawned process: one `Network.train` step
+     of the trained Net6 on one chunk (500 seeded examples, 4,000 rows)
+     and one searched move, each with the mesh and without, bitwise equal
+     (cuDNN deterministic);
+  6q. `python -m tak_tpu_torch.cli.warmup` at the reference config (Net6,
+     the pit at its defaults): every stage named, their times; then
+     `utils.profiling.trace` around one self-play move: the Chrome trace
+     names `backup_descend_kernel` (#2, #4) and `expand_backup_kernel`
+     (#3);
   7. time each kernel (CUDA events; a kernel launched twenty times back to
      back behind a spin long enough for the host to queue them all) and
      its plain version at the main paths' shapes, with the least time the
@@ -245,7 +264,7 @@ POOL_TIER = ("backup_descend_wave", "descend_wave", "expand_backup_wave")
 HBM_TIER = ("descend_wave_hbm", "expand_backup_wave_hbm")
 PATHS = ("selfplay", "player", "fused_leaf_legal", "env_rollout", "pit",
          "xla_v1", "xla", "gumbel", "quad", "dense_net5", "bot",
-         "native_replay")
+         "native_replay", "sharded_rank0", "nccl_world1")
 SOURCES = {
     "fused_step": "tak_tpu_torch/csrc/fused_step.cu",
     "fused_step_legal": "tak_tpu_torch/csrc/fused_step_legal.cu",
@@ -1475,8 +1494,8 @@ def selfplay_phase(engine, eval_fn, params, dev, card, what, moves,
             first_tree.append(out.clone())
         return out
 
-    def select_moves(gen, t, exploit):
-        a = orig_select(gen, t, exploit)
+    def select_moves(gen, t, exploit, mesh=None):
+        a = orig_select(gen, t, exploit, mesh)
         roots = t.state[:, 0]
         legal = engine.legal_mask(roots)
         ok = legal[torch.arange(a.shape[0], device=dev), a.long()]
@@ -2600,11 +2619,11 @@ def gumbel_phase(engine, eval_fn, params, dev, card):
     orig_run, orig_sel = mcts.run_sims_gumbel, mcts.select_moves_gumbel
     checked, times = [], []
 
-    def run(p, t, gen):
+    def run(p, t, gen, mesh=None):
         fresh = not checked
         sync()
         t0 = time.perf_counter()
-        out, g = orig_run(p, t, gen)
+        out, g = orig_run(p, t, gen, mesh)
         sync()
         times.append(time.perf_counter() - t0)
         if fresh:
@@ -3081,7 +3100,304 @@ def native_replay_phase(engine, dev, card):
     return launches
 
 
-def make_actor(engine, eval_fn, dev, moves, **search_options):
+# ---------------------------------------------------------------------------
+# The tenth slice: the data-parallel path (`tak_tpu_torch/parallel/`: two
+# ranks on the one card over gloo, NCCL at world size 1), the warm-up
+# command line and the profiler's trace.
+# ---------------------------------------------------------------------------
+
+def pool_search_launches(scfg, moves: int) -> dict:
+    """#2-#4 launches of `moves` searched moves on the pool tier: each
+    move's search runs ceil(waves / chunk) chunks of `chunk` waves, each a
+    descend, chunk - 1 merged backup+descends and a flush."""
+    chunk = (-(-scfg.scan_chunk // scfg.wave_size) if scfg.scan_chunk
+             else scfg.num_waves)
+    chunks = -(-scfg.num_waves // chunk)
+    return {"descend_wave": moves * chunks,
+            "expand_backup_wave": moves * chunks,
+            "backup_descend_wave": moves * chunks * (chunk - 1)}
+
+
+def recording_actor(engine, eval_fn, dev, moves, mesh, chosen):
+    """`make_actor` (on `mesh`'s rank, or one process with None) whose
+    chosen moves, every game's, are appended to `chosen`."""
+    from tak_tpu_torch.parallel.mesh import gather_rows
+
+    actor = make_actor(engine, eval_fn, dev, moves, mesh=mesh)
+    orig = actor.mcts.select_moves
+
+    def select(gen, tree, exploit, mesh=None):
+        acts = orig(gen, tree, exploit, mesh)
+        chosen.append(gather_rows(mesh, acts).cpu())
+        return acts
+
+    actor.mcts.select_moves = select
+    return actor
+
+
+def same_examples(got, want, what):
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} examples against {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        import numpy as np
+
+        same = (np.array_equal(g.actions, w.actions)
+                and np.array_equal(g.visits, w.visits)
+                and g.result == w.result
+                and all(np.array_equal(g.state[k], v)
+                        for k, v in w.state.items()))
+        if not same:
+            fail(f"{what}: example {i} differs")
+
+
+def sharded_rank(rank, out_path):
+    """One of two ranks on cuda:0 (gloo): one searched move at the
+    reference config with the exact evaluator, its #2-#4 launches from the
+    config, rank 0 then the same move in one process (examples and chosen
+    moves must be equal); then two moves of the trained Net6, the second
+    timed.  Rank 0 writes the numbers to `out_path`."""
+    import torch
+
+    from tak_tpu_torch.engine.core import get_engine
+    from tak_tpu_torch.graft_entry import exact_eval
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.model.network import Network
+    from tak_tpu_torch.parallel.mesh import barrier, make_mesh
+    from tak_tpu_torch.utils.device import setup_performance_defaults
+
+    dev = torch.device("cuda", 0)
+    setup_performance_defaults(dev)
+    mesh = make_mesh(device=dev)
+    engine = get_engine(N)
+    exact = exact_eval(engine.num_actions)
+    chosen = []
+    actor = recording_actor(engine, exact, dev, 1, mesh, chosen)
+    kb.reset_launches()
+    examples = actor.run(None, seed=SEED, log=lambda m: None)
+    sync()
+    launches = dict(kb.LAUNCHES)
+    want = pool_search_launches(actor.search_config, 1)
+    if any(launches.get(k) != v for k, v in want.items()):
+        fail(f"sharded move, rank {rank}: launches {launches}, want {want}")
+    if rank == 0:
+        ref_chosen = []
+        ref = recording_actor(engine, exact, dev, 1, None, ref_chosen)
+        same_examples(examples, ref.run(None, seed=SEED, log=lambda m: None),
+                      "sharded move (exact evaluator) against one process")
+        if not all(torch.equal(a, b) for a, b in zip(chosen, ref_chosen)):
+            fail("sharded move: chosen moves differ from one process's")
+    net = Network(engine, device=dev)
+    variables = net.load(NET6_WEIGHTS)
+    real = recording_actor(engine, net.policy_eval_states, dev, 2, mesh, [])
+    barrier(mesh)
+    real.run(variables, seed=SEED, log=lambda m: None)
+    sync()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump({"launches": launches, "examples": len(examples),
+                       "net6_move_s": [t for t, _ in real.move_times],
+                       "sims": real.move_times[-1][1]}, f)
+
+
+def sharded_phase(card):
+    """6o: two ranks on the one card over an explicit gloo group (NCCL
+    refuses two ranks on one device): `dryrun_multichip(2, "cuda")` at
+    flagship shapes, then `sharded_rank`.  Returns rank 0's launches of
+    the exact-evaluator move and the numbers."""
+    import torch
+
+    from tak_tpu_torch.graft_entry import dryrun_multichip
+    from tak_tpu_torch.parallel.mesh import spawn_local
+
+    torch.cuda.empty_cache()     # the ranks share the card with this process
+    t0 = time.perf_counter()
+    try:
+        dry = dryrun_multichip(2, "cuda", backend="gloo", timeout_s=300)
+    except Exception as e:  # a rank's failure, surfaced here
+        fail(f"dryrun_multichip(2, 'cuda'): {e}")
+    t_dry = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rank0.json")
+        t0 = time.perf_counter()
+        try:
+            spawn_local(sharded_rank, 2, (path,), backend="gloo",
+                        timeout_s=300)
+        except Exception as e:  # a rank's failure, surfaced here
+            fail(f"two ranks on one card: {e}")
+        t_move = time.perf_counter() - t0
+        with open(path) as f:
+            out = json.load(f)
+    first, second = out["net6_move_s"]
+    out["s_per_move"] = second
+    log(f"6o dry run: flagship Net6 (float32) DPLearner step over 2 gloo "
+        f"ranks on one card within 4x the row-permutation control (loss "
+        f"dev {dry['dp_loss_dev']:.2e} vs {dry['ctl_loss_dev']:.2e}, param "
+        f"dev {dry['dp_param_dev']:.2e} vs {dry['ctl_param_dev']:.2e}), the "
+        f"sharded move's visits and actions equal one process's "
+        f"({t_dry:.1f} s with process start), on {card}")
+    log(f"6o sharded self-play, 2 ranks x {GAMES // 2} games on one card "
+        f"(gloo): one move with the exact evaluator bitwise equal to one "
+        f"process's ({out['examples']} examples, chosen moves equal), "
+        f"launches of rank 0 {out['launches']}; the trained Net6: move 1 "
+        f"{first:.3f} s (cuDNN autotuning), move 2 {second:.3f} s, "
+        f"{GAMES * out['sims'] / second:,.0f} sims/s on a SHARED card (two "
+        f"processes time-slice one H100: not a scaling figure); "
+        f"{t_move:.1f} s with process start, on {card}")
+    return out["launches"], out
+
+
+def nccl_rank(rank, out_path):
+    """NCCL at world size 1 (the code path of a multi-card run): one
+    `Network.train` step of the trained Net6 on one chunk (500 seeded
+    examples, 4,000 rows) and one searched move, each with the mesh and
+    without; the one-rank all-reduce is the identity, so both must be
+    equal bit for bit (cuDNN held to deterministic algorithms here)."""
+    import numpy as np
+    import torch
+
+    from tak_tpu_torch.engine.core import get_engine
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.model.network import CHUNK_SIZE, Network
+    from tak_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(device=dev)
+    if (mesh.backend, mesh.world) != ("nccl", 1):
+        fail(f"6p: mesh {mesh.backend} x {mesh.world}")
+    engine = get_engine(N)
+    net = Network(engine, device=dev)
+    variables = net.load(NET6_WEIGHTS)
+    examples = seeded_examples(engine, CHUNK_SIZE, np.random.default_rng(1),
+                               dev)
+    out = {}
+
+    def train(m):
+        sync()
+        t0 = time.perf_counter()
+        new = net.train(variables, examples, rng=np.random.default_rng(2),
+                        chunk_size=CHUNK_SIZE, chunks_in_step=1,
+                        log=lambda *_: None, mesh=m)
+        sync()
+        return new, time.perf_counter() - t0
+
+    train(None)                                    # warm-up
+    plain, out["train_s"] = train(None)
+    sharded, out["train_mesh_s"] = train(mesh)
+    for k, v in plain.items():
+        if not torch.equal(v, sharded[k]):
+            fail(f"6p: Network.train with the NCCL mesh differs at {k}")
+    moves = {}
+    for key, m in (("plain", None), ("mesh", mesh)):
+        chosen = []
+        actor = recording_actor(engine, net.policy_eval_states, dev, 1, m,
+                                chosen)
+        kb.reset_launches()
+        moves[key] = (actor.run(variables, seed=SEED, log=lambda *_: None),
+                      chosen, dict(kb.LAUNCHES), actor.move_times[0][0])
+    same_examples(moves["mesh"][0], moves["plain"][0],
+                  "6p: the move with the NCCL mesh against without")
+    if not all(torch.equal(a, b) for a, b in zip(moves["mesh"][1],
+                                                 moves["plain"][1])):
+        fail("6p: chosen moves differ with the NCCL mesh")
+    want = pool_search_launches(actor.search_config, 1)
+    if any(moves["mesh"][2].get(k) != v for k, v in want.items()):
+        fail(f"6p: launches {moves['mesh'][2]}, want {want}")
+    out.update(launches=moves["mesh"][2], move_s=moves["plain"][3],
+               move_mesh_s=moves["mesh"][3])
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def nccl_phase(card):
+    """6p: `nccl_rank` in a subprocess of its own (world size 1)."""
+    from tak_tpu_torch.parallel.mesh import spawn_local
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rank0.json")
+        t0 = time.perf_counter()
+        try:
+            spawn_local(nccl_rank, 1, (path,), backend="nccl", timeout_s=300)
+        except Exception as e:  # the rank's failure, surfaced here
+            fail(f"NCCL at world size 1: {e}")
+        wall = time.perf_counter() - t0
+        with open(path) as f:
+            out = json.load(f)
+    log(f"6p NCCL at world size 1: Network.train of the trained Net6 on one "
+        f"chunk (500 examples, 4,000 rows, one step) "
+        f"{1e3 * out['train_s']:.1f} ms without the mesh, {1e3 * out['train_mesh_s']:.1f} ms with it, "
+        f"bitwise equal; one searched move {out['move_s']:.3f} s without, "
+        f"{out['move_mesh_s']:.3f} s with, examples and chosen moves bitwise "
+        f"equal, launches {out['launches']} (cuDNN deterministic; "
+        f"{wall:.1f} s with process start), on {card}")
+    return out["launches"], out
+
+
+WARMUP_STAGES = ("build kernels", "masked_step", "wins_in_one", "legal_mask",
+                 "init_batch", "prepare_root", "add_noise",
+                 "run_sims (the big one)", "select_moves", "move_bundle",
+                 "tree_reset", "env_reset", "train chunk (500)",
+                 "optimizer step", "pit init (H=64)", "pit prepare_root",
+                 "pit run_sims", "pit select_moves", "pit step", "total")
+
+
+def warmup_trace_phase(here, engine, eval_fn, params, dev, card):
+    """6q: `python -m tak_tpu_torch.cli.warmup` at the reference self-play
+    config, Net6 and the pit at its defaults, every stage name printed;
+    then `utils.profiling.trace` around one self-play move, whose Chrome
+    trace must name the pool-tier kernels (#2 and #4 share
+    `backup_descend_kernel`, #3 is `expand_backup_kernel`).  Returns the
+    stage times and the trace's kernel counts."""
+    import re
+
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.utils.profiling import trace
+
+    t0 = time.perf_counter()
+    out = run_entry(["-m", "tak_tpu_torch.cli.warmup", "--size", str(N),
+                     "--workers", str(GAMES), "--rollouts", str(SIMS),
+                     "--wave", str(WAVE), "--k", str(K)], here, timeout=400)
+    wall = time.perf_counter() - t0
+    stages = {}
+    for line in out.splitlines():
+        m = re.match(r"\[warmup\] (.+?):? ([0-9.]+)s$", line)
+        if m:
+            stages[m.group(1)] = float(m.group(2))
+    missing = [s for s in WARMUP_STAGES if s not in stages]
+    if missing:
+        fail(f"cli.warmup printed no {missing}:\n{out[-3000:]}")
+    log(f"6q cli.warmup at the reference config (Net6, pit at its "
+        f"defaults): " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+        + f"; {wall:.1f} s with process start, on {card}")
+
+    actor = make_actor(engine, eval_fn, dev, 1)
+    kb.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp, log=lambda *_: None):
+            actor.run(params, seed=SEED, log=lambda m: None)
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = collections.Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            for sym in ("backup_descend_kernel", "expand_backup_kernel",
+                        "fused_step_kernel"):
+                if e.get("name", "").startswith(sym):
+                    kernels[sym] += 1
+    launched = dict(kb.LAUNCHES)
+    want = {"backup_descend_kernel": launched.get("backup_descend_wave", 0)
+            + launched.get("descend_wave", 0),
+            "expand_backup_kernel": launched.get("expand_backup_wave", 0)}
+    if any(kernels[k] == 0 or v == 0 for k, v in want.items()):
+        fail(f"6q trace: kernel events {dict(kernels)}, launches {launched}")
+    log(f"6q trace of one self-play move: {len(events)} events, kernel "
+        f"events {dict(kernels)} against launches {want} of #2/#4 and #3, "
+        f"on {card}")
+    return stages, dict(kernels)
+
+
+def make_actor(engine, eval_fn, dev, moves, mesh=None, **search_options):
     from tak_tpu_torch.mcts.search import SearchConfig
     from tak_tpu_torch.selfplay import SelfPlayActor, SelfPlayConfig
 
@@ -3089,7 +3405,7 @@ def make_actor(engine, eval_fn, dev, moves, **search_options):
         games=GAMES, workers=GAMES, max_plies=2 + moves,
         search=SearchConfig(num_sims=SIMS, wave_size=WAVE, max_children=K,
                             recycle=True, **search_options))
-    return SelfPlayActor(engine, eval_fn, cfg, device=dev)
+    return SelfPlayActor(engine, eval_fn, cfg, device=dev, mesh=mesh)
 
 
 def main(do_profile: bool = False):
@@ -3341,6 +3657,23 @@ def main(do_profile: bool = False):
     d_launches, d_out, d_shape = dense_net5_phase(dev, card)
     b_launches, b_out = bot_phase(engine, net6, vars6, dev, card)
     n_launches = native_replay_phase(engine, dev, card)
+
+    # ---- 6o-6q. the data-parallel path, the warm-up, the trace -------------
+    s_launches, s_out = sharded_phase(card)
+    p_out_launches, nccl_out = nccl_phase(card)
+    w_stages, w_kernels = warmup_trace_phase(here, engine, eval_fn, params,
+                                             dev, card)
+    slice10_line = (
+        f"2 ranks on one card: Net6 {s_out['s_per_move']:.3f} s a move (a "
+        f"shared card, not a scaling figure); NCCL world 1: a Net6 chunk "
+        f"step {1e3 * nccl_out['train_mesh_s']:.1f} ms "
+        f"({1e3 * nccl_out['train_s']:.1f} without the mesh), a move "
+        f"{nccl_out['move_mesh_s']:.3f} s ({nccl_out['move_s']:.3f}); "
+        f"cli.warmup total {w_stages['total']:.1f} s (build "
+        f"{w_stages['build kernels']:.1f}, run_sims "
+        f"{w_stages['run_sims (the big one)']:.2f}, train chunk "
+        f"{w_stages['train chunk (500)']:.2f}, pit run_sims "
+        f"{w_stages['pit run_sims']:.2f})")
     slice9_line = (
         f"xla path {x_out['sims_per_s']:,.0f} sims/s "
         f"({x_out['ms_per_wave']:.1f} ms per wave, a wave's descents "
@@ -3369,7 +3702,7 @@ def main(do_profile: bool = False):
     by_path = {name: dict(zip(PATHS, (c.get(name, 0) for c in (
         launches, p_launches, f_launches, r_launches, pit_launches,
         x1_launches, x_launches, g_launches, qd_launches, d_launches,
-        b_launches, n_launches))))
+        b_launches, n_launches, s_launches, p_out_launches))))
         for name in REPLACES}
 
     # ---- 7. timing ---------------------------------------------------------
@@ -3519,7 +3852,7 @@ def main(do_profile: bool = False):
         + f"{options_line}; {r_line}; "
         + "; ".join(p_lines)
         + f"; Player: {p_rate:,.0f} rollouts/s over {P_MOVES} moves; "
-        + train_line + "; " + slice9_line)
+        + train_line + "; " + slice9_line + "; " + slice10_line)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

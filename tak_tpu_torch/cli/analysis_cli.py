@@ -50,15 +50,12 @@ def build_parser():
 
 
 def _setup(args):
-    import torch
-
     from ..engine.core import get_engine
     from ..model.network import Network
-    from ..utils.device import resolve_device
+    from ..utils.device import resolve_device, setup_performance_defaults
 
     device = resolve_device("cpu" if args.cpu else None)
-    if device.type == "cuda":
-        torch.backends.cudnn.benchmark = True
+    setup_performance_defaults(device)
     engine = get_engine(args.board_size)
     network = Network(engine, device=device)
     if args.model_path == "random":

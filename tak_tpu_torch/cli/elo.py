@@ -41,19 +41,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    import torch
-
     from ..elo import LadderConfig, elo_ladder
     from ..engine.core import get_engine
     from ..mcts.search import SearchConfig
     from ..model.network import Network
     from ..model.resnet import NetConfig
     from ..pit import PitConfig
-    from ..utils.device import resolve_device
+    from ..utils.device import resolve_device, setup_performance_defaults
 
     device = resolve_device("cpu" if args.cpu else None)
-    if device.type == "cuda":
-        torch.backends.cudnn.benchmark = True
+    setup_performance_defaults(device)
     engine = get_engine(args.size)
     blocks = args.blocks if args.blocks is not None else (
         16 if args.size >= 6 else 8

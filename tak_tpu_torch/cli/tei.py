@@ -40,13 +40,10 @@ def build_parser():
 
 class TeiServer:
     def __init__(self, args):
-        import torch
-
-        from ..utils.device import resolve_device
+        from ..utils.device import resolve_device, setup_performance_defaults
 
         self.device = resolve_device("cpu" if args.cpu else None)
-        if self.device.type == "cuda":
-            torch.backends.cudnn.benchmark = True
+        setup_performance_defaults(self.device)
         self.args = args
         self.size = args.size
         self.half_komi = args.half_komi

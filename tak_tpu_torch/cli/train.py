@@ -8,8 +8,16 @@ binary).
 (train/src/cli.rs:4-16, main.rs:45-53); otherwise it is a weights file
 written by either package.  Scale knobs (--games, --rollouts, --workers,
 --generations) default to the reference's compile-time constants.  The
-run uses the CUDA device unless `--cpu` is given.  Not ported: the JAX
-package's `--sharded` / `--distributed` data-parallel path.
+run uses the CUDA device unless `--cpu` is given.
+
+Data parallel (`--sharded` on one host, `--distributed` across hosts; one
+process per card, launched by torchrun, which sets the rank environment):
+
+    torchrun --nproc_per_node=G -m tak_tpu_torch.cli.train ... --sharded
+
+Self-play game slots and learner rows are split over the ranks
+(`--workers` and the chunk size must divide by the world size); NCCL on
+the cards, gloo with `--cpu`.
 """
 
 from __future__ import annotations
@@ -67,13 +75,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA device")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--sharded", action="store_true",
+                   help="data parallel over the ranks of a torchrun launch "
+                        "on this host: self-play slots and learner rows "
+                        "split over them (workers and chunk rows must "
+                        "divide the world size)")
+    p.add_argument("--distributed", action="store_true",
+                   help="the same over the hosts of a multi-node torchrun "
+                        "launch (implies --sharded)")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    import torch
-
     from ..engine.core import get_engine
     from ..examples import ReplayBuffer
     from ..mcts.search import SearchConfig
@@ -82,11 +96,19 @@ def main(argv=None):
     from ..pit import PitConfig
     from ..selfplay import RECYCLE_POOL, SelfPlayConfig
     from ..train_loop import TrainLoopConfig, load_training_run, training_loop
-    from ..utils.device import resolve_device
+    from ..utils.device import resolve_device, setup_performance_defaults
 
-    device = resolve_device("cpu" if args.cpu else None)
-    if device.type == "cuda":
-        torch.backends.cudnn.benchmark = True
+    mesh = None
+    if args.sharded or args.distributed:
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(device="cpu" if args.cpu else None)
+        device = mesh.device
+        if mesh.rank == 0:
+            print(f"mesh: {mesh.world} dp ranks ({mesh.backend})")
+    else:
+        device = resolve_device("cpu" if args.cpu else None)
+    setup_performance_defaults(device)
     engine = get_engine(args.size)
     blocks = args.blocks or (16 if args.size >= 6 else 8)
     network = Network(engine, NetConfig(n=args.size, filters=args.filters,
@@ -149,7 +171,7 @@ def main(argv=None):
             chunks_in_step=args.chunks_in_step,
         )
     training_loop(engine, network, variables, buffer, cfg, seed=args.seed,
-                  start_generation=start_generation)
+                  start_generation=start_generation, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -61,6 +61,7 @@ from functools import cached_property
 import torch
 
 from ..engine.legal_bits import masked_topk_packed
+from ..parallel.mesh import gather_rows, shard_rows
 from ..types import ONGOING, GameState, result_winner
 from .tree import NONE, TENSOR_FIELDS, Tree, init_tree, root_visit_counts
 from .tree_kernels import (
@@ -205,6 +206,14 @@ def _gamma_fixed(gen, alpha: float, shape, device, iters: int = 4):
     return out
 
 
+def _row_draw(draw, shape, mesh):
+    """draw(shape) for this rank's rows: with `mesh`, its `shard_rows` of
+    draw(shape) over the whole batch (`shape` holds one rank's rows)."""
+    if mesh is None:
+        return draw(tuple(shape))
+    return shard_rows(mesh, draw((shape[0] * mesh.world,) + tuple(shape[1:])))
+
+
 # the "xla" path's loops read their condition on the host every this many
 # iterations (the descent only once its V cursors have all started)
 _CHECK_EVERY = 8
@@ -332,10 +341,15 @@ class MCTS:
         return tree
 
     def add_noise(self, gen, tree: Tree, alpha: float, ratio: float,
-                  apply_mask) -> Tree:
-        """Dirichlet root noise: p <- ratio*noise + (1-ratio)*p."""
-        gammas = _gamma_fixed(gen, alpha, tuple(tree.root_prior.shape),
-                              tree.root_prior.device)
+                  apply_mask, mesh=None) -> Tree:
+        """Dirichlet root noise: p <- ratio*noise + (1-ratio)*p.  With
+        `mesh` the tree holds this rank's games of the batch, and the
+        gammas are drawn for the whole batch and cut to its rows, so that
+        they are the draws of one process holding every game."""
+        gammas = _row_draw(
+            lambda shape: _gamma_fixed(gen, alpha, shape,
+                                       tree.root_prior.device),
+            tree.root_prior.shape, mesh)
         gammas = torch.where(tree.root_legal, gammas, torch.zeros_like(gammas))
         noise = gammas / torch.clamp(gammas.sum(-1, keepdim=True), min=1e-30)
         mixed = ratio * noise + (1.0 - ratio) * tree.root_prior
@@ -849,15 +863,17 @@ class MCTS:
         return _last_argmax(torch.where(on.any(-1, keepdim=True), sel,
                                         fallback))
 
-    def run_sims_gumbel(self, params, tree: Tree, gen):
+    def run_sims_gumbel(self, params, tree: Tree, gen, mesh=None):
         """Full Gumbel search (config.gumbel_m > 0): one Gumbel sample per
         game and action, -log(-log(U)) with U from `gen`, drives sequential
-        halving at the root over `num_waves` waves.  Returns (tree,
-        gumbel [B, A])."""
+        halving at the root over `num_waves` waves.  `mesh` as in
+        `add_noise`.  Returns (tree, gumbel [B, A])."""
         if self.config.gumbel_m <= 0:
             raise ValueError("set SearchConfig.gumbel_m > 0 for gumbel search")
-        u = torch.rand(tuple(tree.root_prior.shape), generator=gen,
-                       device=tree.root_prior.device)
+        u = _row_draw(
+            lambda shape: torch.rand(shape, generator=gen,
+                                     device=tree.root_prior.device),
+            tree.root_prior.shape, mesh)
         u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
         gumbel = -torch.log(-torch.log(u))
         return self._run_sims_gumbel(params, tree, gumbel), gumbel
@@ -921,16 +937,23 @@ class MCTS:
                                recycle=self._kernel_args()["recycle"])
         return tree
 
-    def select_moves(self, gen, tree: Tree, exploit) -> torch.Tensor:
+    def select_moves(self, gen, tree: Tree, exploit,
+                     mesh=None) -> torch.Tensor:
         """Per game: argmax visits (ties -> last) where `exploit`, else a
-        sample proportional to visits (play.rs:49-67).  int32 [B]."""
-        visits = root_visit_counts(tree)
+        sample proportional to visits (play.rs:49-67).  int32 [B].  With
+        `mesh` the tree holds this rank's games, `exploit` covers the whole
+        batch, and the choice is made on every rank's gathered root visits
+        (the draws and the all-exploit test are those of one process
+        holding every game), then cut to this rank's rows."""
+        visits = gather_rows(mesh, root_visit_counts(tree))
         greedy = _last_argmax(visits)
         exploit = exploit.to(visits.device)
         if bool(exploit.all()):
-            return greedy.to(torch.int32)
+            return shard_rows(mesh, greedy.to(torch.int32))
         probs = visits.float()
         empty = probs.sum(-1, keepdim=True) <= 0
-        probs = torch.where(empty, tree.root_legal.float() + 1e-30, probs)
+        legal = gather_rows(mesh, tree.root_legal)
+        probs = torch.where(empty, legal.float() + 1e-30, probs)
         sampled = torch.multinomial(probs, 1, generator=gen)[:, 0]
-        return torch.where(exploit, greedy, sampled).to(torch.int32)
+        return shard_rows(mesh, torch.where(exploit, greedy,
+                                            sampled).to(torch.int32))

@@ -24,7 +24,9 @@
 Variables are `state_dict`s of the unfolded `TakResNet`; the folded copy
 is built once per variables object (by identity) and loaded into the
 inference module, so `train` returns new tensors and never writes into
-the ones it was given.  Data-parallel training is not ported.
+the ones it was given.  `train(..., mesh=)` is the data-parallel path
+(`parallel/`): every rank takes its rows of each chunk, BatchNorm takes
+global statistics and the gradients are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ from ..engine.observe import observe
 from ..sizes import input_channels, move_channels
 from ..types import GameState
 from ..utils.device import resolve_device
-from .resnet import BN_EPS, NetConfig, TakResNet
+from .resnet import BN_EPS, BatchNorm, NetConfig, TakResNet
 
 LEARNING_RATE = 1e-4
 WEIGHT_DECAY = 1e-4
@@ -284,13 +286,18 @@ class Network:
         return torch.optim.Adam(params, lr=LEARNING_RATE,
                                 weight_decay=WEIGHT_DECAY)
 
-    def _train_model(self, variables: dict) -> TakResNet:
+    def _train_model(self, variables: dict, mesh=None) -> TakResNet:
         """A fresh unfolded module in train mode holding float32 copies of
-        `variables` on the network's device."""
+        `variables` on the network's device; with `mesh`, its BatchNorms
+        take global batch statistics."""
         model = TakResNet(self.config).to(self.device)
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
         model.load_state_dict(variables)
+        if mesh is not None:
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.mesh = mesh
         return model.train()
 
     @cached_property
@@ -330,9 +337,12 @@ class Network:
         return pi if self._legacy is None else pi[:, self._legacy]
 
     @staticmethod
-    def _loss(model, planes, pi, z):
+    def _loss(model, planes, pi, z, world: int = 1):
+        """(loss, policy part, value part); each is this rank's sum over
+        the global row count (`world` equal blocks of rows), so that the
+        ranks' parts sum to the global mean."""
         logits, value = model(planes)
-        B = logits.shape[0]
+        B = logits.shape[0] * world
         loss_p = -torch.sum(pi * torch.log_softmax(logits, -1)) / B
         loss_z = torch.sum(torch.square(z - value)) / B
         return loss_p + loss_z, loss_p, loss_z
@@ -373,20 +383,21 @@ class Network:
 
         return sub, dev(acts), dev(vis), dev(z[idx])
 
-    def _accum_chunk(self, model, states, acts, vis, z):
-        """Planes, targets and the 8x symmetry expansion of one chunk, then
-        its loss's gradients ADDED to the model's `.grad` (and its batch
-        statistics moved).  Returns the (policy, value) loss parts."""
+    def _accum_chunk(self, model, states, acts, vis, z, world: int = 1):
+        """Planes, targets and the 8x symmetry expansion of one chunk (this
+        rank's rows of it over `world` ranks), then its loss's gradients
+        ADDED to the model's `.grad` (and its batch statistics moved).
+        Returns the (policy, value) loss parts."""
         planes = self.observe_batch(states)
         pi = self._build_pi(acts, vis)
         planes, pi, z = self._symmetry_expand(planes, pi, z)
-        loss, loss_p, loss_z = self._loss(model, planes, pi, z)
+        loss, loss_p, loss_z = self._loss(model, planes, pi, z, world)
         loss.backward()
         return loss_p.detach(), loss_z.detach()
 
     def train(self, variables, examples, *, rng=None, log=print,
               chunk_size: int | None = None, chunks_in_step: int | None = None,
-              passes: int = 1) -> dict:
+              passes: int = 1, mesh=None) -> dict:
         """`passes` training passes over `examples` (list of Example);
         passes=1 is reference parity.  Returns the new variables.
 
@@ -396,14 +407,36 @@ class Network:
         (network.rs:37-57); every chunk moves the batch statistics.  A
         trailing partial step is flushed (the reference drops it, which a
         small buffer cannot afford: no step at all would leave the
-        candidate equal to the incumbent).  Empty input is a no-op."""
+        candidate equal to the incumbent).  Empty input is a no-op.
+
+        With `mesh` (`parallel.mesh.Mesh`; every rank calls `train` with the
+        same examples and an equally seeded `rng`, so the chunk order is
+        the same everywhere): each rank takes its `shard_rows` of every
+        chunk, BatchNorm takes the global batch statistics, and the
+        accumulated gradients are summed over the ranks (one all-reduce
+        per optimizer step) before Adam steps; the logged `p=`/`z=` are
+        the global means.  Same math, same effective batch; every rank
+        returns the same variables."""
+        from ..parallel.mesh import (
+            all_reduce_grads,
+            all_reduce_sum,
+            shard_rows,
+        )
+
         if len(examples) == 0:  # tolerate empty input (no-op, ref parity)
             return variables
         chunk_size = chunk_size or CHUNK_SIZE
         chunks_in_step = chunks_in_step or CHUNKS_IN_STEP
         rng = rng or np.random.default_rng()
-        model = self._train_model(variables)
+        model = self._train_model(variables, mesh)
         opt = self.make_optimizer(model.parameters())
+        world = 1 if mesh is None else mesh.world
+
+        def step(lp, lz, what):
+            lp, lz = all_reduce_sum(mesh, torch.stack([lp, lz])).tolist()
+            log(f"chunk {done}/{total_chunks} p={lp:.4f} z={lz:.4f} {what}")
+            all_reduce_grads(mesh, model.parameters())
+            opt.step()
 
         t0 = time.time()
         pre = self._prestack(examples)
@@ -417,17 +450,15 @@ class Network:
             order = rng.permutation(len(examples))
             for i in range(n_chunks):
                 idx = order[i * chunk_size:(i + 1) * chunk_size]
-                lp, lz = self._accum_chunk(model, *self._chunk_arrays(pre, idx))
+                lp, lz = self._accum_chunk(
+                    model, *self._chunk_arrays(pre, shard_rows(mesh, idx)),
+                    world)
                 done += 1
                 if done % chunks_in_step == 0:
-                    log(f"chunk {done}/{total_chunks} p={float(lp):.4f} "
-                        f"z={float(lz):.4f} step")
-                    opt.step()
+                    step(lp, lz, "step")
                     opt.zero_grad()
         if total_chunks % chunks_in_step != 0:
-            log(f"chunk {total_chunks}/{total_chunks} p={float(lp):.4f} "
-                f"z={float(lz):.4f} step (trailing flush)")
-            opt.step()
+            step(lp, lz, "step (trailing flush)")
         dt = time.time() - t0
         if dt > 0:
             log(f"train: {total_chunks} chunks in {dt:.1f}s "

@@ -73,7 +73,17 @@ class BatchNorm(nn.Module):
     variance.  Both modes normalise in float32, (x - mean) *
     (rsqrt(var + eps) * scale) + bias, and return the input's dtype.
     Parameter and buffer names are `nn.BatchNorm2d`'s, so state_dicts keep
-    their keys (`num_batches_tracked` is kept, not counted)."""
+    their keys (`num_batches_tracked` is kept, not counted).
+
+    With `mesh` set (a `parallel.mesh.Mesh`; the data-parallel learner sets
+    it), train mode takes the statistics over the GLOBAL batch, as XLA
+    does for the JAX package's sharded step: every rank holds an equal
+    block of rows (`shard_rows`), so E[x] and E[x^2] over the batch are
+    the sums over the ranks of their own means divided by W, formed by
+    one differentiable all-reduce; at W = 1 that is the identity, bit for
+    bit.  The running statistics then agree on every rank."""
+
+    mesh = None
 
     def __init__(self, features: int):
         super().__init__()
@@ -88,7 +98,13 @@ class BatchNorm(nn.Module):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             mean = xf.mean((0, 2, 3))
-            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+            ex2 = (xf * xf).mean((0, 2, 3))
+            if self.mesh is not None:
+                from ..parallel.mesh import all_reduce_sum
+
+                mean, ex2 = all_reduce_sum(
+                    self.mesh, torch.stack([mean, ex2]) / self.mesh.world)
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(BN_MOMENTUM).add_(
                     (1 - BN_MOMENTUM) * mean)

@@ -28,6 +28,13 @@ the same examples.
 Random draws: the openings use `numpy.random.default_rng(seed)` as the
 JAX package does; root noise and move sampling use a torch.Generator on
 the search device seeded with `seed`.
+
+Sharded (`mesh=`, `parallel/actor.py`): the device work (states, trees,
+search, every kernel) runs on this rank's block of the `workers` game
+slots, while the host bookkeeping (plies, resets, openings, instant wins,
+examples) runs on every rank over all slots from gathered readbacks, and
+the random draws are those of one process holding every game: a sharded
+generation gives exactly the single-process examples, on every rank.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from .examples import Example
 from .mcts.reuse import blank_trees, reroot
 from .mcts.search import MCTS, SearchConfig
 from .mcts.tree import root_visit_counts
+from .parallel.actor import ShardedEnv
 from .types import ONGOING, result_winner, where_state
 from .utils.device import resolve_device
 
@@ -71,14 +79,21 @@ class SelfPlayConfig:
 
 
 class SelfPlayActor:
-    def __init__(self, engine, eval_fn, config: SelfPlayConfig, device=None):
+    def __init__(self, engine, eval_fn, config: SelfPlayConfig, device=None,
+                 mesh=None):
+        """`mesh` (`parallel.mesh.Mesh`): shard the `workers` game slots
+        over its ranks (`workers` must divide by the world size, so quad
+        rollouts, one game, refuse W > 1); the device is the mesh's."""
         self.engine = engine
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
         if config.quad_rollout_plies > 0 and config.workers != 1:
             raise ValueError(
                 "quad_rollout_plies matches the reference's SEQUENTIAL "
                 "self-play (self_play.rs:21-92) and requires workers=1")
+        self.env = ShardedEnv(engine, mesh, config.workers, self.device)
         quad = 4 if config.quad_rollout_plies > 0 else 1
         search = config.search
         if search.node_budget is None:
@@ -107,17 +122,17 @@ class SelfPlayActor:
         return first, second
 
     def _reset(self, states, mask):
-        fresh = self.engine.initial_batch(mask.shape[0], 2 * self.config.komi,
-                                          self.device)
-        return where_state(torch.as_tensor(mask, device=self.device), fresh,
-                           states)
+        """Fresh boards in the slots of the host mask [workers]."""
+        fresh = self.env.initial_batch(2 * self.config.komi)
+        return where_state(self.env.local(mask), fresh, states)
 
     def _move_tail(self, tree, states, actions, active):
         """Everything after move selection: root visit counts, the pre-move
         snapshot, the masked env step, the reroot and the next any-win
-        flag, read back to the host together."""
+        flag, read back to the host together (every slot's, on every
+        rank)."""
         cfg = self.config
-        act = torch.as_tensor(active, device=self.device)
+        act = self.env.local(active)
         visits = self._root_targets(tree)
         new_states = self.engine.step(states, actions, act)
         if cfg.tree_reuse:
@@ -130,9 +145,12 @@ class SelfPlayActor:
             any_win = self.engine.wins_in_one(new_states).any(-1)
         else:
             any_win = torch.zeros_like(act)
-        host = (visits.cpu().numpy(), states.to_numpy(),
-                new_states.result.cpu().numpy(), new_states.ply.cpu().numpy(),
-                any_win.cpu().numpy())
+        gather = self.env.gather
+        host = (gather(visits).cpu().numpy(), gather(states).to_numpy(),
+                gather(new_states.result).cpu().numpy(),
+                gather(new_states.ply).cpu().numpy(),
+                gather(any_win).cpu().numpy(),
+                gather(new_tree.next_free).cpu().numpy())
         return new_tree, new_states, host
 
     def _root_targets(self, tree):
@@ -145,14 +163,17 @@ class SelfPlayActor:
 
     @torch.no_grad()
     def run(self, params, seed: int = 0, log=print, example_sink=None):
-        """Produce one generation of examples.  Returns list[Example]."""
+        """Produce one generation of examples.  Returns list[Example] (the
+        same on every rank of a mesh)."""
         cfg = self.config
         engine = self.engine
+        env = self.env
+        mesh = self.mesh
         B = cfg.workers
         rng = np.random.default_rng(seed)
         gen = torch.Generator(device=self.device).manual_seed(seed)
 
-        states = engine.initial_batch(B, 2 * cfg.komi, self.device)
+        states = env.initial_batch(2 * cfg.komi)
         tree = None
         tree_stale = np.ones(B, bool)
         pending: list[list[Example]] = [[] for _ in range(B)]
@@ -179,15 +200,12 @@ class SelfPlayActor:
         plies = np.zeros(B, np.int64)
         any_win_host = np.zeros(B, bool)  # fresh boards can't win in one
 
-        def dev(x):
-            return torch.as_tensor(x, device=self.device)
-
         while active.any():
             fresh = (plies == 0) & active
             if fresh.any():
                 first, second = self._opening_actions(rng, B)
-                states = engine.step(states, dev(first), dev(fresh))
-                states = engine.step(states, dev(second), dev(fresh))
+                states = env.step(states, first, fresh)
+                states = env.step(states, second, fresh)
                 plies[fresh] += 2
 
             # instant-win scan: the flag rides in the previous move's readback
@@ -195,9 +213,9 @@ class SelfPlayActor:
             if cfg.instant_win_scan:
                 any_win = any_win_host & active
                 if any_win.any():
-                    wins = engine.wins_in_one(states).cpu().numpy()
-                    legal = engine.legal_mask(states).cpu().numpy()
-                    host_states = states.to_numpy()
+                    wins = env.gather(engine.wins_in_one(states)).cpu().numpy()
+                    legal = env.gather(engine.legal_mask(states)).cpu().numpy()
+                    host_states = env.gather(states).to_numpy()
                     for i in np.nonzero(any_win)[0]:
                         acts = np.nonzero(legal[i])[0].astype(np.int32)
                         visits = np.where(wins[i][acts], INSTANT_WIN_VISITS,
@@ -229,24 +247,28 @@ class SelfPlayActor:
                 tree = self.mcts.init_batch(states)
                 tree_stale[:] = False
             elif tree_stale.any():
-                tree = blank_trees(tree, states, dev(tree_stale))
+                tree = blank_trees(tree, states, env.local(tree_stale))
                 tree_stale[:] = False
             tree = self.mcts.prepare_root(params, tree)
             quad = (cfg.quad_rollout_plies > 0
                     and int(plies[0]) < cfg.quad_rollout_plies)
             if self._gumbel:
-                tree, gumbel = self.mcts.run_sims_gumbel(params, tree, gen)
+                tree, gumbel = self.mcts.run_sims_gumbel(params, tree, gen,
+                                                         mesh)
                 actions = self.mcts.select_moves_gumbel(tree, gumbel)
             else:
-                noise_mask = dev((plies < cfg.noise_plies) & active)
+                noise_mask = env.local((plies < cfg.noise_plies) & active)
                 tree = self.mcts.add_noise(gen, tree, cfg.noise_alpha,
-                                           cfg.noise_ratio, noise_mask)
+                                           cfg.noise_ratio, noise_mask, mesh)
                 tree = self.mcts.run_sims(params, tree)
                 if quad:
                     for _ in range(3):  # 4x total (self_play.rs:63-67)
                         tree = self.mcts.run_sims(params, tree)
+                # the whole batch's exploit flags: the choice is made on
+                # every rank's gathered visits
                 actions = self.mcts.select_moves(
-                    gen, tree, dev(plies >= cfg.exploit_plies))
+                    gen, tree, torch.as_tensor(plies >= cfg.exploit_plies,
+                                               device=self.device), mesh)
             factor = 4 if quad else 1
             move_sims = factor * self.search_config.num_waves * \
                 self.search_config.wave_size
@@ -254,7 +276,8 @@ class SelfPlayActor:
 
             tree, new_states, host = self._move_tail(tree, states, actions,
                                                      active)
-            visits_all, host_states, results, new_plies, any_win_next = host
+            (visits_all, host_states, results, new_plies, any_win_next,
+             next_free) = host
             self.move_times.append((time.perf_counter() - t_move, move_sims))
 
             for i in range(B):
@@ -270,7 +293,7 @@ class SelfPlayActor:
             any_win_host = np.array(any_win_next)
             if cfg.tree_reuse and not self.search_config.recycle:
                 room = self.search_config.max_nodes - self._per_move_sims
-                tree_stale |= tree.next_free.cpu().numpy() > room
+                tree_stale |= next_free > room
 
             reset_mask = np.zeros(B, bool)
             for i in range(B):

@@ -14,10 +14,19 @@ Every generation ends with a full-run checkpoint (`_checkpoint/`:
 incumbent weights + replay buffer + generation counter, in the JAX
 package's format), and `load_training_run` / `cli/train.py --resume`
 continue exactly where the run stopped.
+
+With `mesh` (`parallel.mesh.Mesh`, `cli/train.py --sharded`) every rank
+runs the loop: self-play is sharded over the ranks and gathered, so that
+every rank's buffer holds the same examples; `Network.train` runs data
+parallel; the pit runs whole on every rank with the same seed and rank
+0's accept/reject decision is broadcast (two ranks whose cuDNN autotunes
+chose other algorithms could otherwise disagree at the gate, and their
+incumbents would part).  Rank 0 alone writes files and logs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -27,6 +36,7 @@ import numpy as np
 
 from .examples import ReplayBuffer, example_to_line
 from .model.network import Network
+from .parallel.mesh import broadcast_flag, replicate
 from .pit import PitConfig, pit
 from .selfplay import SelfPlayActor, SelfPlayConfig
 from .utils.checkpoint import load_run, save_run
@@ -55,6 +65,18 @@ class TrainLoopConfig:
 def sys_time() -> int:
     """Unix seconds, used to name artifacts (alpha-tak/src/lib.rs:33-38)."""
     return int(time.time())
+
+
+def _artifact_path(workdir: str, folder: str, ext: str) -> str:
+    """`<workdir>/<folder>/<unix seconds>.<ext>`, with `-1`, `-2`, ... after
+    the seconds when that file exists: two generations inside one second
+    must not overwrite the first one's file."""
+    stem = os.path.join(workdir, folder, str(sys_time()))
+    path, i = f"{stem}.{ext}", 0
+    while os.path.exists(path):
+        i += 1
+        path = f"{stem}-{i}.{ext}"
+    return path
 
 
 def save_training_run(engine, variables, buffer: ReplayBuffer, workdir: str,
@@ -93,15 +115,22 @@ def training_loop(
     log=print,
     seed: int = 0,
     start_generation: int = 0,
+    mesh=None,
 ):
     """Run generations on the network's device until `config.generations`;
-    returns the final incumbent."""
+    returns the final incumbent (the same on every rank of `mesh`)."""
     cfg = config
-    for d in (MODEL_DIR, EXAMPLE_DIR, GAME_DIR):
-        os.makedirs(os.path.join(cfg.workdir, d), exist_ok=True)
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        for d in (MODEL_DIR, EXAMPLE_DIR, GAME_DIR):
+            os.makedirs(os.path.join(cfg.workdir, d), exist_ok=True)
+    else:
+        log = lambda *_: None  # noqa: E731
+    variables = replicate(mesh, variables)
 
     eval_fn = network.policy_eval_states
-    actor = SelfPlayActor(engine, eval_fn, cfg.selfplay, device=network.device)
+    actor = SelfPlayActor(engine, eval_fn, cfg.selfplay, device=network.device,
+                          mesh=mesh)
 
     generation = start_generation
     while cfg.generations is None or generation < cfg.generations:
@@ -113,7 +142,7 @@ def training_loop(
             candidate = network.train(
                 variables, buffer.examples, log=log,
                 rng=np.random.default_rng([seed, generation]),
-                passes=cfg.train_passes,
+                passes=cfg.train_passes, mesh=mesh,
             )
 
             log(f"[gen {generation}] pitting candidate vs incumbent")
@@ -123,21 +152,27 @@ def training_loop(
                          seed=seed + generation, log=log,
                          device=network.device)
             log(f"[gen {generation}] {result} win_rate={result.win_rate():.3f}")
-            if result.win_rate() > cfg.win_rate_threshold:
+            if broadcast_flag(mesh,
+                              result.win_rate() > cfg.win_rate_threshold):
                 variables = candidate
-                path = os.path.join(cfg.workdir, MODEL_DIR, f"{sys_time()}.model")
-                network.save(variables, path)
-                log(f"[gen {generation}] accepted; saved {path}")
+                if writer:
+                    path = _artifact_path(cfg.workdir, MODEL_DIR, "model")
+                    network.save(variables, path)
+                    log(f"[gen {generation}] accepted; saved {path}")
             else:
                 log(f"[gen {generation}] rejected")
 
             buffer.truncate()
 
         log(f"[gen {generation}] starting self-play")
-        path = os.path.join(cfg.workdir, EXAMPLE_DIR, f"{sys_time()}.data")
-        with open(path, "w") as f:
-            def sink(ex):
-                f.write(example_to_line(engine, ex) + "\n")
+        with contextlib.ExitStack() as stack:
+            sink = None
+            if writer:
+                path = _artifact_path(cfg.workdir, EXAMPLE_DIR, "data")
+                f = stack.enter_context(open(path, "w"))
+
+                def sink(ex):
+                    f.write(example_to_line(engine, ex) + "\n")
 
             new_examples = actor.run(
                 variables, seed=seed + 1000 + generation, log=log,
@@ -146,7 +181,7 @@ def training_loop(
         buffer.extend(new_examples)
         log(f"[gen {generation}] buffer now {len(buffer)} examples")
 
-        if cfg.checkpoint:
+        if cfg.checkpoint and writer:
             ckpt = save_training_run(
                 engine, variables, buffer, cfg.workdir, generation
             )

@@ -21,3 +21,12 @@ def resolve_device(device=None) -> torch.device:
         raise ValueError(f"unsupported device {str(dev)!r}")
     return dev
 
+
+
+def setup_performance_defaults(device) -> None:
+    """What every command line sets for its device (the counterpart of
+    `tak_tpu/utils/device.py`'s, which sets JAX's compile cache): on CUDA,
+    cuDNN autotuning (`torch.backends.cudnn.benchmark`), whose choices
+    last for the process that made them."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cudnn.benchmark = True

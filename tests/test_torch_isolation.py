@@ -29,7 +29,9 @@ NEW_MODULES = ("analysis", "errors", "game", "player", "engine.tps",
                "cli.analysis_cli", "cli.tei", "engine.legal_bits",
                "engine.env_rollout", "examples", "pit", "train_loop", "elo",
                "cli.train", "cli.elo", "native", "playtak.protocol",
-               "playtak.bot", "cli.playtak_cli")
+               "playtak.bot", "cli.playtak_cli", "parallel.mesh",
+               "parallel.learner", "parallel.actor", "utils.warmup",
+               "utils.profiling", "cli.warmup", "graft_entry")
 
 
 def test_port_imports_no_jax_or_tak_tpu():
@@ -61,17 +63,26 @@ def test_cuda_request_without_card_raises():
     with pytest.raises(RuntimeError):
         Network(Engine(6))
     assert resolve_device("cpu").type == "cpu"
+    # the data-parallel mesh: the card by default, NCCL only on a card
+    from tak_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError):
+        make_mesh()
+    with pytest.raises(ValueError):
+        make_mesh(backend="nccl", device="cpu")
 
 
 def test_training_entry_points_default_to_the_card():
-    """`Network.train`, `pit`, the Elo ladder and both training command
-    lines run on the CUDA device unless asked for the CPU: without a card
-    they raise."""
+    """`Network.train`, `pit`, the Elo ladder, both training command lines,
+    the warm-up command line and the dry run's entry run on the CUDA device
+    unless asked for the CPU: without a card they raise."""
     import torch
 
     from tak_tpu_torch.cli import elo as elo_cli
     from tak_tpu_torch.cli import train as train_cli
+    from tak_tpu_torch.cli import warmup as warmup_cli
     from tak_tpu_torch.elo import elo_ladder
+    from tak_tpu_torch.graft_entry import entry
     from tak_tpu_torch.engine.core import get_engine
     from tak_tpu_torch.model.network import Network
     from tak_tpu_torch.model.resnet import NetConfig
@@ -92,6 +103,10 @@ def test_training_entry_points_default_to_the_card():
         train_cli.main(["random", "--size", "3"])
     with pytest.raises(RuntimeError):
         elo_cli.main(["random", "random", "--size", "3"])
+    with pytest.raises(RuntimeError):
+        warmup_cli.main(["--size", "3"])
+    with pytest.raises(RuntimeError):
+        entry()
 
 
 def test_player_entry_points_default_to_the_card():

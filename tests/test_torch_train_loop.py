@@ -173,3 +173,19 @@ def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
     # the reference: with 2 workers the actor refuses them
     with pytest.raises(ValueError):
         train_cli.main(args + ["--quad-rollout-plies", "10"])
+
+
+def test_artifact_names_never_overwrite(tmp_path, monkeypatch):
+    """Two generations inside one second name their files apart: the
+    examples or model file of the first is never overwritten."""
+    from tak_tpu_torch import train_loop
+
+    monkeypatch.setattr(train_loop, "sys_time", lambda: 1_700_000_000)
+    (tmp_path / "_examples").mkdir()
+    names = []
+    for _ in range(3):
+        path = train_loop._artifact_path(str(tmp_path), "_examples", "data")
+        open(path, "w").close()
+        names.append(path.rsplit("/", 1)[1])
+    assert names == ["1700000000.data", "1700000000-1.data",
+                     "1700000000-2.data"]
