@@ -154,6 +154,23 @@ Phases, each fatal on failure:
      `utils.profiling.trace` around one self-play move: the Chrome trace
      names `backup_descend_kernel` (#2, #4) and `expand_backup_kernel`
      (#3);
+  6r. the root-policy quality probe (`tak_tpu_torch.tools.quality`) at
+     `quality_recycle`'s defaults: 8 random 6x6 positions 24 plies deep,
+     Net6 on seed-0 weights, 10,000 sims at wave 16 on the recycled
+     1,280-node pool (K=32, chunks of 512 sims) and on the large-tree
+     tier (K=128, budget 20,002): TV, top-1 agreement and each side's
+     seconds; every policy row sums to 1 (within 1e-9) on the legal mask
+     and the root's edge visits equal what the root holds; #2-#4 launched
+     on the pool side only, #8/#9 on the other; then #2-#4
+     (`captured_pool_phase`) and #8/#9 (`check_hbm_on_tree`) bitwise and
+     timed on each side's searched tree; `python -m
+     tak_tpu_torch.tools.quality_k` at its defaults on the card;
+  6s. the strength A/B (`tak_tpu_torch.tools.strength_ab`) on the trained
+     Net6: preset `recycle`, 8 games, 800 sims, cut to 24 plies, in
+     process: the record's keys, game count and `wilson_ci`, #2-#4 and
+     #8/#9 launched; then `--subprocess-rounds` over two child rounds of
+     4 games cut to 12 plies: two lines, the printed total their sum;
+     the peak RSS of this process before and after, and of the children;
   7. time each kernel (CUDA events; a kernel launched twenty times back to
      back behind a spin long enough for the host to queue them all) and
      its plain version at the main paths' shapes, with the least time the
@@ -167,8 +184,10 @@ Phases, each fatal on failure:
   8. print one `{"kernels": [...]}` line, then the `{"ok": true, ...}` line.
      A kernel's `ms`, `plain_ms` and `bound_ms` are those of its main-path
      shape (the large-tree waves: the Player's own tree); `other_shapes`
-     holds its times elsewhere (#2-#4 at the pit's shape too),
-     `launches_by_path` the count of each path (the pit's included).
+     holds its times elsewhere (#2-#4 at the pit's, quad, dense Net5
+     and quality-probe shapes, #8/#9 at the quality probe's too),
+     `launches_by_path` the count of each path (the pit's, the quality
+     probe's and the A/B's included).
 
 `--profile` adds, before the last two lines, where one self-play move's
 search (with `fused_leaf_legal` off and on), one Player wave, one Net6
@@ -245,6 +264,22 @@ BOT_PLIES = 7                  # the scripted game ends after the bot's ply 6
 NATIVE_GAMES = 256             # native playouts replayed on the card
 NATIVE_MAX_PLIES = 300
 
+# the eleventh slice: the quality probe at `tools.quality_recycle`'s
+# defaults, the strength A/B cut to a few plies
+Q_SIMS = 10_000
+Q_WAVE = 16
+Q_GAMES = 8
+Q_PLIES = 24
+Q_POOL = 1280
+Q_K = 32
+Q_CHUNK = 512
+Q_REF_K = 128
+AB_GAMES = 8                   # in-process round: games
+AB_SIMS = 800
+AB_PLIES = 24                  # its max_plies: the opening's 4 + 20 searched
+AB_SUB_GAMES = 4               # each of the two child rounds
+AB_SUB_PLIES = 12
+
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_OPS_PER_S = 989e12        # H100 SXM tensor cores, dense
 F32_OPS_PER_S = 67e12          # H100 SXM, outside the tensor cores
@@ -264,7 +299,8 @@ POOL_TIER = ("backup_descend_wave", "descend_wave", "expand_backup_wave")
 HBM_TIER = ("descend_wave_hbm", "expand_backup_wave_hbm")
 PATHS = ("selfplay", "player", "fused_leaf_legal", "env_rollout", "pit",
          "xla_v1", "xla", "gumbel", "quad", "dense_net5", "bot",
-         "native_replay", "sharded_rank0", "nccl_world1")
+         "native_replay", "sharded_rank0", "nccl_world1", "quality",
+         "strength_ab")
 SOURCES = {
     "fused_step": "tak_tpu_torch/csrc/fused_step.cu",
     "fused_step_legal": "tak_tpu_torch/csrc/fused_step_legal.cu",
@@ -3397,6 +3433,223 @@ def warmup_trace_phase(here, engine, eval_fn, params, dev, card):
     return stages, dict(kernels)
 
 
+# ---------------------------------------------------------------------------
+# The eleventh slice: the search-strength guardrails (`tak_tpu_torch/tools/`):
+# the root-policy quality probe and the paired-opening strength A/B.
+# ---------------------------------------------------------------------------
+
+def probe_policy_checks(engine, mcts, tree, states, policy, what):
+    """A probe side's searched roots: each row of `policy` sums to 1 within
+    1e-9 (all zero for a game the random opening finished), is zero off
+    `Engine.legal_mask`, and the root's edge visits add up to what the root
+    holds (`n0` less `prepare_root`'s own visit: every wave the search ran,
+    whole chunks included)."""
+    import numpy as np
+
+    from tak_tpu_torch.mcts.tree import root_visit_counts
+    from tak_tpu_torch.types import ONGOING
+
+    cfg = mcts.config
+    chunk = cfg.num_waves
+    if cfg.scan_chunk:
+        chunk = min(chunk, -(-cfg.scan_chunk // cfg.wave_size))
+    sims = -(-cfg.num_waves // chunk) * chunk * cfg.wave_size
+    ongoing = (states.result == ONGOING).cpu().numpy()
+    legal = engine.legal_mask(states).cpu().numpy()
+    sums = policy.sum(-1)
+    if not np.all(np.where(ongoing, np.abs(sums - 1.0) <= 1e-9,
+                           sums == 0.0)):
+        fail(f"{what}: policy sums {sums.tolist()}")
+    if np.any(policy[~legal] != 0.0):
+        fail(f"{what}: visits off the legal mask")
+    visits = root_visit_counts(tree).sum(-1)
+    if not (bool((visits == tree.root_n.sum(-1)).all())
+            and bool((visits == tree.n0 - 1).all())
+            and np.all((tree.n0 - 1).cpu().numpy()[ongoing] == sims)):
+        fail(f"{what}: root visits {visits.tolist()}, root holds "
+             f"{tree.n0.tolist()}, {sims} sims searched")
+    return sims
+
+
+def quality_phase(here, dev, card):
+    """6r: `tools.quality_recycle`'s computation at its defaults: 8 random
+    6x6 positions 24 plies deep, Net6 on seed-0 weights in bf16, 10,000
+    sims at wave 16 on each side: the recycled 1,280-node pool at K=32 in
+    chunks of 512 sims (#1, #2-#4) against the large-tree tier at K=128
+    with a 20,002-node budget (#1, #8/#9).  Checks each side's policies
+    (`probe_policy_checks`) and launch counts, then holds #2-#4
+    (`captured_pool_phase`) and #8/#9 (`check_hbm_on_tree`) bitwise and
+    times them on each side's searched tree; then `python -m
+    tak_tpu_torch.tools.quality_k` at its defaults on the card.  Returns
+    (the path's launches, the pool-tier shape of `captured_pool_phase`,
+    the large-tier times, numbers)."""
+    import torch
+
+    from tak_tpu_torch.engine.core import get_engine
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.model.network import Network
+    from tak_tpu_torch.tools import quality
+
+    engine = get_engine(N)
+    net = Network(engine, device=dev)
+    params = net.init_variables(0)
+    states = quality.random_midgame_states(
+        engine, Q_GAMES, Q_PLIES,
+        torch.Generator().manual_seed(quality.POSITIONS_SEED), dev)
+    sides = {
+        "pool": dict(k=Q_K, budget=Q_POOL, recycle=True, backend="pallas",
+                     chunk=Q_CHUNK),
+        "hbm": dict(k=Q_REF_K, budget=2 * Q_SIMS + 2, backend="pallas_hbm"),
+    }
+    kb.reset_launches()
+    searched, policies, seconds, launches = {}, {}, {}, {}
+    for side, kw in sides.items():
+        before = dict(kb.LAUNCHES)
+        sync()
+        t0 = time.perf_counter()
+        mcts, tree = quality.search(engine, net.policy_eval_states, params,
+                                    states, Q_SIMS, Q_WAVE, **kw)
+        policies[side] = quality.normalized_visits(tree)
+        seconds[side] = time.perf_counter() - t0
+        launches[side] = launches_since(before)
+        sims = probe_policy_checks(engine, mcts, tree, states,
+                                   policies[side], f"6r {side} side")
+        searched[side] = (mcts, tree, sims)
+    path_launches = dict(kb.LAUNCHES)
+    for side, on, off in (("pool", POOL_TIER, HBM_TIER),
+                          ("hbm", HBM_TIER, POOL_TIER)):
+        got = launches[side]
+        if (any(got.get(k, 0) <= 0 for k in on + ("fused_step",))
+                or any(got.get(k, 0) != 0 for k in off)):
+            fail(f"6r {side} side launches {got}")
+    tv_mean, tv_max, top1 = quality.tv_top1(policies["hbm"],
+                                            policies["pool"])
+    out = {"tv_mean": tv_mean, "tv_max": tv_max, "top1": top1,
+           "pool_s": seconds["pool"], "hbm_s": seconds["hbm"]}
+    log(f"6r quality probe (quality_recycle at its defaults: {Q_GAMES} "
+        f"positions at ply {Q_PLIES}, Net6 seed-0 weights): recycled pool "
+        f"{Q_POOL} K={Q_K} wave {Q_WAVE} ({searched['pool'][2]} sims run) "
+        f"{seconds['pool']:.2f} s vs pallas_hbm K={Q_REF_K} "
+        f"({searched['hbm'][2]} sims) {seconds['hbm']:.2f} s: TV mean "
+        f"{tv_mean:.4f} max {tv_max:.4f}, top-1 agreement {top1:.3f}; "
+        f"launches pool side {launches['pool']}, large-tree side "
+        f"{launches['hbm']}; policies sum to 1, legal, root visits "
+        f"conserved, on {card}")
+
+    mcts, tree, _ = searched["pool"]
+    shape = captured_pool_phase(mcts, params, tree,
+                                "quality probe's pool side", card)
+    mcts, tree, _ = searched["hbm"]
+    hbm = check_hbm_on_tree(mcts, params, tree,
+                            "the quality probe's large-tree side", card)
+    del searched
+
+    t0 = time.perf_counter()
+    text = run_entry(["-m", "tak_tpu_torch.tools.quality_k"], here,
+                     timeout=400)
+    out["quality_k_s"] = time.perf_counter() - t0
+    lines = text.splitlines()
+    if not (len(lines) == 3 and lines[1].startswith("  TV distance: mean")
+            and lines[2].startswith("  top-1 agreement: ")):
+        fail(f"quality_k printed:\n{text[-3000:]}")
+    log(f"6r quality_k at its defaults on the card ({out['quality_k_s']:.1f}"
+        f" s with process start): " + " | ".join(x.strip() for x in lines))
+    return path_launches, shape, hbm, out
+
+
+def peak_rss_mib(who) -> float:
+    import resource
+
+    return resource.getrusage(who).ru_maxrss / 1024.0
+
+
+def strength_phase(here, card):
+    """6s: `tools.strength_ab` on the trained Net6: in process, preset
+    `recycle` (the recycled 1,280-node pool at K=32 against the large-tree
+    tier at K=128), AB_GAMES games, AB_SIMS sims, cut to AB_PLIES plies;
+    checks the record against the reference's keys, the game count and
+    `wilson_ci`, and both tiers' launches.  Then `--subprocess-rounds`
+    over two rounds of AB_SUB_GAMES games cut to AB_SUB_PLIES plies as a
+    subprocess: two lines, the printed total their sum.  Prints the peak
+    RSS of this process before and after, and of the children.  Returns
+    (the in-process run's launches, numbers)."""
+    import re
+    import resource
+
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.tools import strength_ab
+
+    keys = {"preset", "size", "sims", "sims_b", "games", "seed", "model",
+            "max_plies", "wins", "losses", "draws", "unfinished",
+            "win_rate", "ci95", "seconds"}
+    rss_before = peak_rss_mib(resource.RUSAGE_SELF)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ab.jsonl")
+        kb.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        record = strength_ab.main([
+            "--preset", "recycle", "--games", str(AB_GAMES), "--sims",
+            str(AB_SIMS), "--max-plies", str(AB_PLIES), "--model",
+            NET6_WEIGHTS, "--json-out", path])
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(kb.LAUNCHES)
+        with open(path) as f:
+            written = [json.loads(x) for x in f]
+        W, L, D, U = (record[k] for k in ("wins", "losses", "draws",
+                                           "unfinished"))
+        lo, hi = strength_ab.wilson_ci(W, W + L)
+        if not (written == [record] and set(record) == keys
+                and W + L + D + U == AB_GAMES
+                and record["ci95"] == [round(lo, 4), round(hi, 4)]):
+            fail(f"6s record {written} against {record}")
+        if any(launches.get(k, 0) <= 0
+               for k in POOL_TIER + HBM_TIER + ("fused_step",)):
+            fail(f"6s launches {launches}")
+        rss_mid = peak_rss_mib(resource.RUSAGE_SELF)
+
+        sub = os.path.join(tmp, "rounds.jsonl")
+        t1 = time.perf_counter()
+        text = run_entry(["-m", "tak_tpu_torch.tools.strength_ab",
+                          "--subprocess-rounds", "--games", str(AB_SUB_GAMES),
+                          "--max-games", str(2 * AB_SUB_GAMES),
+                          "--max-plies", str(AB_SUB_PLIES), "--sims",
+                          str(AB_SIMS), "--model", NET6_WEIGHTS,
+                          "--json-out", sub], here, timeout=400)
+        sub_wall = time.perf_counter() - t1
+        with open(sub) as f:
+            rounds = [json.loads(x) for x in f]
+    m = re.search(r"subprocess-SPRT total: (\d+)-(\d+)-(\d+)(?:-(\d+)u)?"
+                  r"  decision=", text)
+    child_rss = [float(x.replace(",", "")) for x in
+                 re.findall(r"child peak RSS ([0-9,]+) MiB", text)]
+    if not (m and len(rounds) == 2 and len(child_rss) == 2
+            and [int(x or 0) for x in m.groups()] == [
+                sum(r[k] for r in rounds)
+                for k in ("wins", "losses", "draws", "unfinished")]):
+        fail(f"6s subprocess rounds: {rounds} against\n{text[-3000:]}")
+    plies = AB_PLIES - 4
+    out = {"wall_s": wall, "plies_per_s": plies / wall,
+           "sub_wall_s": sub_wall, "rss_before_mib": rss_before,
+           "rss_after_mib": peak_rss_mib(resource.RUSAGE_SELF),
+           "rss_mid_mib": rss_mid, "child_rss_mib": child_rss,
+           "children_rss_mib": peak_rss_mib(resource.RUSAGE_CHILDREN)}
+    log(f"6s strength A/B in process (preset recycle, trained Net6, "
+        f"{AB_GAMES} games, {AB_SIMS} sims, cut: max_plies {AB_PLIES}): "
+        f"{W}-{L}-{D}{f'-{U}u' if U else ''}, CI95 {record['ci95']}; "
+        f"{plies} searched plies in {wall:.2f} s ({out['plies_per_s']:.2f} "
+        f"lockstep plies/s); launches {launches}; then --subprocess-rounds, "
+        f"2 rounds of {AB_SUB_GAMES} games cut to {AB_SUB_PLIES} plies: "
+        f"{[(r['wins'], r['losses'], r['draws']) for r in rounds]}, "
+        f"{sub_wall:.1f} s; peak RSS of this process {rss_before:,.0f} MiB "
+        f"before, {rss_mid:,.0f} after the in-process run, "
+        f"{out['rss_after_mib']:,.0f} after; the A/B's children "
+        f"{', '.join(f'{x:,.0f}' for x in child_rss)} MiB; all children "
+        f"of this process {out['children_rss_mib']:,.0f} MiB, on {card}")
+    return launches, out
+
+
 def make_actor(engine, eval_fn, dev, moves, mesh=None, **search_options):
     from tak_tpu_torch.mcts.search import SearchConfig
     from tak_tpu_torch.selfplay import SelfPlayActor, SelfPlayConfig
@@ -3663,6 +3916,18 @@ def main(do_profile: bool = False):
     p_out_launches, nccl_out = nccl_phase(card)
     w_stages, w_kernels = warmup_trace_phase(here, engine, eval_fn, params,
                                              dev, card)
+
+    # ---- 6r-6s. the search-strength guardrails ------------------------------
+    q_launches, q_shape, q_hbm, q_out = quality_phase(here, dev, card)
+    ab_launches, ab_out = strength_phase(here, card)
+    slice11_line = (
+        f"quality probe at 10,000 sims: pool side {q_out['pool_s']:.2f} s, "
+        f"large-tree side {q_out['hbm_s']:.2f} s, TV mean "
+        f"{q_out['tv_mean']:.4f}, top-1 {q_out['top1']:.3f}; quality_k "
+        f"{q_out['quality_k_s']:.1f} s; strength A/B (8 games, 800 sims, "
+        f"20 plies) {ab_out['wall_s']:.2f} s, {ab_out['plies_per_s']:.2f} "
+        f"plies/s; two child rounds {ab_out['sub_wall_s']:.1f} s, their peak "
+        f"RSS {', '.join(f'{x:,.0f}' for x in ab_out['child_rss_mib'])} MiB")
     slice10_line = (
         f"2 ranks on one card: Net6 {s_out['s_per_move']:.3f} s a move (a "
         f"shared card, not a scaling figure); NCCL world 1: a Net6 chunk "
@@ -3702,7 +3967,8 @@ def main(do_profile: bool = False):
     by_path = {name: dict(zip(PATHS, (c.get(name, 0) for c in (
         launches, p_launches, f_launches, r_launches, pit_launches,
         x1_launches, x_launches, g_launches, qd_launches, d_launches,
-        b_launches, n_launches, s_launches, p_out_launches))))
+        b_launches, n_launches, s_launches, p_out_launches, q_launches,
+        ab_launches))))
         for name in REPLACES}
 
     # ---- 7. timing ---------------------------------------------------------
@@ -3808,13 +4074,15 @@ def main(do_profile: bool = False):
         "legal_sampler": {"given words":
                           times(rollout_times["legal_sampler, given words"])},
         **{name: {"check tree": hbm_times(hbm_check, name),
-                  f"player wave {P_WIDE}": hbm_times(wide_times, name)}
+                  f"player wave {P_WIDE}": hbm_times(wide_times, name),
+                  f"quality probe, B={Q_GAMES} K={Q_REF_K} M="
+                  f"{2 * Q_SIMS + 2} V={Q_WAVE}": hbm_times(q_hbm, name)}
            for name in HBM_TIER},
         **{name: {label: {**times(shape_times[name]),
                           "chain_floor_ms": shape_floors[name]}
                   for label, shape_times, shape_floors in (
                       ("pit, B=64 K=128 M=1602 V=16", pit_times, pit_floors),
-                      qd_shape, d_shape)}
+                      qd_shape, d_shape, q_shape)}
            for name in POOL_TIER},
     }
     kernels = []
@@ -3852,7 +4120,8 @@ def main(do_profile: bool = False):
         + f"{options_line}; {r_line}; "
         + "; ".join(p_lines)
         + f"; Player: {p_rate:,.0f} rollouts/s over {P_MOVES} moves; "
-        + train_line + "; " + slice9_line + "; " + slice10_line)
+        + train_line + "; " + slice9_line + "; " + slice10_line + "; "
+        + slice11_line)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -150,10 +150,14 @@ def _dryrun_rank(rank, n, device, out_path):
     # one self-play move on this rank's games against one process's move
     env = ShardedEnv(engine, mesh, B, mesh.device)
     states = env.step(env.initial_batch(half_komi=4), np.zeros(B, np.int32))
+    masks = env.legal_mask(states)
     visits, actions = _one_move(engine, states, mesh)
     whole_states = engine.step(engine.initial_batch(B, 4, mesh.device),
                                torch.zeros(B, dtype=torch.int32,
                                            device=mesh.device))
+    if not torch.equal(masks, engine.legal_mask(whole_states)[env.rows]):
+        raise AssertionError("sharded legal mask differs from one process's "
+                             "rows")
     ref_visits, ref_actions = _one_move(engine, whole_states)
     if not (torch.equal(visits, ref_visits)
             and torch.equal(actions, ref_actions)):
@@ -174,7 +178,8 @@ def dryrun_multichip(n: int, device="cuda", backend: str | None = None,
     (in float32) on 2n rows and one sharded self-play move (the exact
     evaluator), and asserts the step within 4x a row-permutation control (plus 1e-6 on
     the loss parts, 1e-7 on the parameters) of one process's step, and
-    the move's visits and actions equal to one process's.  `device` "cuda"
+    the move's visits and actions, and the rank's legal mask
+    (`ShardedEnv.legal_mask`), equal to one process's.  `device` "cuda"
     puts rank r on card r mod the card count; `backend` defaults to NCCL
     on CUDA and gloo on the CPU (two ranks on one card need gloo).
     Returns rank 0's summary."""
@@ -192,8 +197,8 @@ def dryrun_multichip(n: int, device="cuda", backend: str | None = None,
           f" over {backend} - dp train step loss_p={summary['loss_p']:.3f} "
           f"loss_z={summary['loss_z']:.3f} within 4x the row-permutation "
           f"control (param dev {summary['dp_param_dev']:.1e} vs "
-          f"{summary['ctl_param_dev']:.1e}); sharded self-play move visits "
-          "and actions EXACTLY equal one process's")
+          f"{summary['ctl_param_dev']:.1e}); sharded legal masks and "
+          "self-play move visits and actions EXACTLY equal one process's")
     return summary
 
 

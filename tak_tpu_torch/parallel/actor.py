@@ -44,6 +44,11 @@ class ShardedEnv:
             states, self.local(actions),
             None if enabled is None else self.local(enabled))
 
+    def legal_mask(self, states) -> torch.Tensor:
+        """Bool [rows, A]: the legal actions of this rank's rows
+        (`Engine.legal_mask`; a finished game's row is not cleared)."""
+        return self.engine.legal_mask(states)
+
     def gather(self, x):
         """Every rank's rows of a tensor or `GameState`, in slot order."""
         return gather_rows(self.mesh, x)

@@ -31,7 +31,10 @@ NEW_MODULES = ("analysis", "errors", "game", "player", "engine.tps",
                "cli.train", "cli.elo", "native", "playtak.protocol",
                "playtak.bot", "cli.playtak_cli", "parallel.mesh",
                "parallel.learner", "parallel.actor", "utils.warmup",
-               "utils.profiling", "cli.warmup", "graft_entry")
+               "utils.profiling", "cli.warmup", "graft_entry", "tools",
+               "tools.quality", "tools.quality_recycle",
+               "tools.quality_control", "tools.quality_k",
+               "tools.strength_ab")
 
 
 def test_port_imports_no_jax_or_tak_tpu():
@@ -155,3 +158,31 @@ def test_playtak_entry_points_default_to_the_card(tmp_path):
                           "--port", "1", "--log-file", ""])
     bot = PlaytakBot(get_engine(3), None, None, cfg, device="cpu")
     assert bot._new_game().game.state.device.type == "cpu"
+
+
+def test_guardrail_tools_default_to_the_card(tmp_path):
+    """The strength A/B (in process and with child rounds) and the three
+    quality probes run on the CUDA device unless given `--cpu`: without a
+    card they raise, and no child round starts."""
+    import torch
+
+    from tak_tpu_torch.tools import (
+        quality_control,
+        quality_k,
+        quality_recycle,
+        strength_ab,
+    )
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    tiny = ["--size", "3", "--sims", "8", "--games", "2"]
+    for probe in (quality_recycle, quality_control, quality_k):
+        with pytest.raises(RuntimeError):
+            probe.main(tiny + ["--wave", "4", "--plies", "1"])
+    with pytest.raises(RuntimeError):
+        strength_ab.main(tiny + ["--blocks", "1"])
+    out = tmp_path / "ab.jsonl"
+    with pytest.raises(RuntimeError):
+        strength_ab.main(tiny + ["--blocks", "1", "--subprocess-rounds",
+                                 "--json-out", str(out)])
+    assert not out.exists()

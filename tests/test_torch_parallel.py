@@ -14,7 +14,9 @@ the tests compare them here with:
   (d) sharded self-play generations (the exact evaluator, with root noise
       and sampled moves; Gumbel mode) equal to one process's, example for
       example, on both ranks;
-  (e) the sharded training loop: only rank 0 writes, incumbents equal.
+  (e) the sharded training loop: only rank 0 writes, incumbents equal;
+  (h) `ShardedEnv.legal_mask`: each rank's rows of the mask of one
+      process holding the gathered batch.
 Then (f) `shard_rows` on a batch the ranks do not divide, and (g)
 `cli.train --sharded --cpu` under torchrun.
 """
@@ -44,6 +46,7 @@ from tak_tpu_torch.parallel.mesh import (
     shard_rows,
     spawn_local,
 )
+from tak_tpu_torch.types import FIELDS
 
 from tests import torch_parallel_ranks as R
 from tests.test_torch_train import _bn_follows, _leaves
@@ -202,6 +205,30 @@ def test_sharded_training_loop_writes_from_rank_zero(ranks):
     assert a.keys() == b.keys()
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+def test_sharded_legal_mask_is_the_ranks_rows(ranks):
+    """(h) on a fresh batch and after 1-3 random steps, each rank's
+    `ShardedEnv.legal_mask` equals its rows of `Engine.legal_mask` on the
+    gathered batch, and the ranks' rows tile that batch."""
+    results, _ = ranks
+    engine = R.tiny_net().engine
+    for step in range(len(results[0]["legal_mask"])):
+        whole = results[0]["legal_mask"][step][1]
+        want = engine.legal_mask(whole)
+        assert bool(want.any(-1).all())
+        got = []
+        for rank, res in enumerate(results):
+            mask, gathered = res["legal_mask"][step]
+            for f in FIELDS:
+                assert torch.equal(getattr(gathered, f), getattr(whole, f))
+            rows = row_range(Mesh(None, rank, RANKS, torch.device("cpu"),
+                                  "gloo"), R.MASK_ROWS)
+            assert torch.equal(mask, want[rows]), (step, rank)
+            got.append(mask)
+        assert torch.equal(torch.cat(got), want)
+        if step:
+            assert int(whole.ply.min()) == step
 
 
 def test_shard_rows_needs_a_divisible_batch():

@@ -21,6 +21,7 @@ N, FILTERS, BLOCKS = 3, 8, 1
 ROWS = 16                    # the learner step's global batch
 CHUNK, IN_STEP, EXAMPLES = 16, 2, 64
 SEED = 3
+MASK_ROWS = 6                # the legal-mask check's batch over the ranks
 
 
 def tiny_net(device="cpu") -> Network:
@@ -176,5 +177,22 @@ def rank_main(rank, out_dir):
     out["incumbent"] = training_loop(engine, net, net.init_variables(0),
                                      ReplayBuffer(), cfg, log=lambda *_: None,
                                      seed=11, mesh=mesh)
+
+    # (h) `ShardedEnv.legal_mask` on this rank's rows of a fresh batch and
+    # after a few random steps (drawn alike on every rank from the gathered
+    # masks), with the gathered states beside it
+    from tak_tpu_torch.parallel.actor import ShardedEnv
+
+    env = ShardedEnv(engine, mesh, MASK_ROWS, "cpu")
+    states = env.initial_batch(half_komi=2)
+    rng = np.random.default_rng(SEED)
+    masks = []
+    for _ in range(4):
+        masks.append((env.legal_mask(states), env.gather(states)))
+        legal = env.gather(env.legal_mask(states)).numpy()
+        acts = np.array([rng.choice(np.nonzero(row)[0]) for row in legal],
+                        np.int32)
+        states = env.step(states, acts)
+    out["legal_mask"] = masks
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
