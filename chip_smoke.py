@@ -36,9 +36,9 @@ Phases, each fatal on failure:
          deep-chain trees with recycling, at K=32, A=9,036, M=1,280;
        * the large-tree descend and expand+backup waves at the Player's
          shape (one game, V=64, K=128, a 131,072-node pool, 9,036 actions)
-         on a tree of several thousand nodes grown by the plain versions,
-         again on 8 deep trees, and on a small pool that runs out inside
-         the wave; the pool-tier kernels run on the same trees with
+         on a tree of about two thousand nodes grown by 30 waves of the
+         plain versions, again on 8 trees grown by 20, and on a small pool
+         that runs out inside the wave; the pool-tier kernels run on the same trees with
          recycling off, for comparison; then on the hand-built trees of
          `tak_tpu_torch.mcts.tree_cases` (a 40-edge prefix shared by all
          leaves, every leaf twice, one leaf 64 times, a chain deeper than
@@ -171,6 +171,16 @@ Phases, each fatal on failure:
      #8/#9 launched; then `--subprocess-rounds` over two child rounds of
      4 games cut to 12 plies: two lines, the printed total their sum;
      the peak RSS of this process before and after, and of the children;
+  6t. the port's benchmark program, `python -m tak_tpu_torch.bench` at its
+     defaults, as a subprocess: its one line has `bench.py`'s keys, names
+     the card, echoes the sizes, every rate positive (the line is printed
+     here, never in the last line); then its MCTS tier in process (512
+     games x 512 sims, wave 32, K=32, 514 nodes without recycling, Net6 on
+     seed-0 weights) with the #1-#4 launches of its 4 searches asserted and
+     every root holding 513 visits; then the tier's tree grown by 8 of its
+     16 pipelined waves: #2, #4 and #3 bitwise against their plain
+     versions and timed beside bound and chain floor, and #1 bitwise and
+     timed on that wave's 16,384 leaf rows;
   7. time each kernel (CUDA events; a kernel launched twenty times back to
      back behind a spin long enough for the host to queue them all) and
      its plain version at the main paths' shapes, with the least time the
@@ -184,16 +194,17 @@ Phases, each fatal on failure:
   8. print one `{"kernels": [...]}` line, then the `{"ok": true, ...}` line.
      A kernel's `ms`, `plain_ms` and `bound_ms` are those of its main-path
      shape (the large-tree waves: the Player's own tree); `other_shapes`
-     holds its times elsewhere (#2-#4 at the pit's, quad, dense Net5
-     and quality-probe shapes, #8/#9 at the quality probe's too),
-     `launches_by_path` the count of each path (the pit's, the quality
-     probe's and the A/B's included).
+     holds its times elsewhere (#2-#4 at the pit's, quad, dense Net5,
+     quality-probe and bench MCTS-tier shapes, #1 at the bench tier's
+     wave, #8/#9 at the quality probe's too), `launches_by_path` the
+     count of each path (the pit's, the quality probe's, the A/B's and the
+     bench MCTS tier's included).
 
 `--profile` adds, before the last two lines, where one self-play move's
 search (with `fused_leaf_legal` off and on), one Player wave, one Net6
-optimizer step (stages, one BatchNorm alone, device time by kernel family)
-and one pit half-batch search spend their time (per-stage host timers,
-then torch.profiler device time).
+optimizer step (stages, one BatchNorm alone, device time by kernel family),
+one pit half-batch search and one bench MCTS-tier search spend their
+time (per-stage host timers, then torch.profiler device time).
 
 Exits non-zero, printing no result, without a CUDA device or without the
 `tak_tpu_torch` package beside this file.
@@ -300,7 +311,7 @@ HBM_TIER = ("descend_wave_hbm", "expand_backup_wave_hbm")
 PATHS = ("selfplay", "player", "fused_leaf_legal", "env_rollout", "pit",
          "xla_v1", "xla", "gumbel", "quad", "dense_net5", "bot",
          "native_replay", "sharded_rank0", "nccl_world1", "quality",
-         "strength_ab")
+         "strength_ab", "bench_mcts")
 SOURCES = {
     "fused_step": "tak_tpu_torch/csrc/fused_step.cu",
     "fused_step_legal": "tak_tpu_torch/csrc/fused_step_legal.cu",
@@ -3650,6 +3661,147 @@ def strength_phase(here, card):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# The twelfth slice: the port's benchmark program (`tak_tpu_torch/bench.py`)
+# and the kernels at its MCTS tier's shape.
+# ---------------------------------------------------------------------------
+
+# the repository's bench.py:248-259
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "env_steps_per_s",
+              "env_vs_baseline", "device", "config", "selfplay_sims_per_s",
+              "selfplay_config"}
+
+
+def bench_program(here, card):
+    """`python -m tak_tpu_torch.bench` at its defaults, as a subprocess:
+    its one stdout line has `bench.py`'s keys, names this card and echoes
+    the default sizes, and every rate is positive.  Returns (the line as
+    printed, parsed)."""
+    import torch
+
+    from tak_tpu_torch.bench import BenchConfig
+
+    cfg = BenchConfig()
+    t0 = time.perf_counter()
+    text = run_entry(["-m", "tak_tpu_torch.bench"], here, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = text.splitlines()
+    if len(lines) != 1:
+        fail(f"6t bench printed {len(lines)} lines:\n{text[-3000:]}")
+    line = json.loads(lines[0])
+    want_config = {"env_batch": cfg.env_batch, "mcts_batch": cfg.mcts_batch,
+                   "mcts_sims": cfg.mcts_sims, "wave": cfg.mcts_wave,
+                   "k": cfg.mcts_k}
+    want_sp = {"workers": cfg.sp_workers, "rollouts": cfg.sp_sims,
+               "recycle": True, "wave": cfg.sp_wave}
+    rates = [line.get(k) for k in ("value", "env_steps_per_s",
+                                   "selfplay_sims_per_s")]
+    if not (set(line) == BENCH_KEYS
+            and line["device"] == torch.cuda.get_device_name(0)
+            and line["metric"] == f"mcts_sims_per_s_{N}x{N}"
+            and line["config"] == want_config
+            and line["selfplay_config"] == want_sp
+            and all(isinstance(r, int) and r > 0 for r in rates)):
+        fail(f"6t bench line malformed: {lines[0]}")
+    log(f"6t bench program at its defaults ({wall:.1f} s with process "
+        f"start) on {card}: {lines[0]}")
+    return lines[0], line
+
+
+def bench_phase(here, engine, eval_fn, params, dev, card):
+    """6t: the port's benchmark program, then its MCTS tier's kernels at
+    full width.  The program at its defaults (`bench_program`); the MCTS
+    tier in process from launch counts of 0, its #1-#4 launches those of
+    its 4 searches, every tree holding its sims; then the tier's tree
+    (512 games, V=32, K=32, M=514, no recycling) grown by 8 of its 16
+    pipelined waves: #2, #4 and #3 bitwise against their plain versions
+    and timed beside bound and chain floor, and #1 bitwise and timed on
+    that wave's 16,384 leaf rows, gathered as the search gathers them.
+    Returns (the tier's launches, its shape label, {kernel: (ms, plain
+    ms, bound ms, bound by)} with #1's, {kernel: chain floor ms}, numbers,
+    (the MCTS, its roots) for `--profile`)."""
+    from tak_tpu_torch import bench
+    from tak_tpu_torch.engine.fused_env import fused_step, step_plain
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.mcts.search import MCTS
+
+    printed, line = bench_program(here, card)
+    cfg = bench.BenchConfig()
+    scfg = bench.mcts_config(cfg.mcts_sims, cfg.mcts_wave, cfg.mcts_k)
+    searches = bench.MCTS_REPS + 1
+    sync()
+    kb.reset_launches()
+    rate, trees = bench.mcts_tier(engine, eval_fn, params, dev,
+                                  cfg.mcts_batch, cfg.mcts_sims,
+                                  cfg.mcts_wave, cfg.mcts_k)
+    sync()
+    launches = dict(kb.LAUNCHES)
+    # a fused step a wave, and the two that make the roots
+    want = {**pool_search_launches(scfg, searches),
+            "fused_step": searches * scfg.num_waves + 2}
+    if launches != want:
+        fail(f"6t MCTS tier launches {launches}, expected {want}")
+    sims = scfg.num_waves * scfg.wave_size
+    for i, tree in enumerate(trees):
+        if not (bool((tree.n0 == sims + 1).all())
+                and bool((tree.root_n.sum(1) == sims).all())
+                and bool((tree.next_free <= scfg.max_nodes).all())):
+            fail(f"6t MCTS tier tree {i}: n0 {tree.n0.unique().tolist()}, "
+                 f"root visits {tree.root_n.sum(1).unique().tolist()}")
+    nodes = int(trees[0].next_free.float().mean())
+    del trees
+    log(f"6t MCTS tier in process: {rate:,.0f} sims/s over "
+        f"{bench.MCTS_REPS} searches of {cfg.mcts_batch} games x {sims} "
+        f"sims; every root holds {sims + 1} visits, {nodes} nodes a tree "
+        f"on average; launches {launches} on {card}")
+
+    mcts = MCTS(engine, eval_fn, scfg)
+    if mcts.tier != "pool" or scfg.recycle or scfg.max_nodes != 514:
+        fail(f"6t MCTS tier: tier {mcts.tier}, config {scfg}")
+    roots = bench.mcts_roots(engine, cfg.mcts_batch, dev)
+    tree = mcts.prepare_root(params, mcts.init_batch(roots))
+    waves = scfg.num_waves // 2
+    pending = grow_pipelined(mcts, params, tree, waves)
+    B, M, Kk = tree.edge_n.shape
+    label = (f"bench MCTS tier, B={B} K={Kk} M={M} V={scfg.wave_size} "
+             f"A={engine.num_actions}")
+    checks = hold_pool_kernels(mcts, tree, pending, f"at the {label}")
+    times, floors, chase = time_pool_kernels(mcts, tree, pending, checks)
+    log(f"6t check and time pool tier at the {label} (no recycling; "
+        f"{waves} of {scfg.num_waves} pipelined waves, "
+        f"{int(tree.next_free.float().mean())} nodes a tree on average): "
+        f"#2, #4 and #3 bitwise equal to the plain versions; "
+        + pool_times_line(times, floors) + f"; {chase} on {card}")
+
+    # the fused step on the merged wave's leaves, as `_leaf_states_of`
+    # gathers them
+    after, _, _, leaves = checks["backup_descend_wave"]
+    parents, acts, live = mcts._leaf_step_inputs(after, leaves)
+    parents = parents.map(lambda x: x.contiguous())
+    acts, live = acts.contiguous(), live.contiguous()
+    rows = acts.shape[0]
+    got = fused_step(engine, parents, acts, live)
+    want_states = step_plain(engine, parents, acts, live)
+    sync()
+    compare_states(got, want_states, f"6t fused_step on {rows} leaf rows")
+    stepped = int((got.ply != parents.ply).sum())
+    if rows != B * scfg.wave_size or stepped == 0:
+        fail(f"6t fused_step: {rows} rows, {stepped} stepped")
+    del got, want_states
+    t_kernel = launch_ms(lambda: fused_step(engine, parents, acts, live))
+    t_plain = cuda_ms(lambda _: step_plain(engine, parents, acts, live), 2)
+    times["fused_step"] = (t_kernel, t_plain,
+                           *bound(*fused_step_work(parents, rows)))
+    log(f"6t check fused_step on one bench MCTS wave's {rows} leaf rows: "
+        f"bitwise equal ({stepped} stepped); kernel {t_kernel:.4f} ms, "
+        f"plain {t_plain:.3f} ms, bound {times['fused_step'][2]:.6f} ms "
+        f"({times['fused_step'][3]}) on {card}")
+    out = {"line": printed, "rows": rows, "mcts_rate": rate, "env_rate":
+           line["env_steps_per_s"], "bench_mcts_rate": line["value"],
+           "sp_rate": line["selfplay_sims_per_s"]}
+    return launches, label, times, floors, out, (mcts, roots)
+
+
 def make_actor(engine, eval_fn, dev, moves, mesh=None, **search_options):
     from tak_tpu_torch.mcts.search import SearchConfig
     from tak_tpu_torch.selfplay import SelfPlayActor, SelfPlayConfig
@@ -3814,12 +3966,12 @@ def main(do_profile: bool = False):
                          max_children=P_K, node_budget=P_POOL)
     one_root = roots[:1].map(lambda x: x.contiguous())
     hbm_check = check_hbm_kernels(
-        MCTS(engine, eval_fn, p_cfg), params, one_root, 60,
+        MCTS(engine, eval_fn, p_cfg), params, one_root, 30,
         "the Player's shape: one game, Net6", card)
     peaked = peaked_eval(engine.num_actions)
     hbm_times_8 = check_hbm_kernels(
         MCTS(engine, peaked, p_cfg), None,
-        roots[:8].map(lambda x: x.contiguous()), 30,
+        roots[:8].map(lambda x: x.contiguous()), 20,
         "8 games, peaked priors", card)
     small_cfg = SearchConfig(num_sims=P_WAVE, wave_size=P_WAVE,
                              max_children=P_K, node_budget=150)
@@ -3920,6 +4072,16 @@ def main(do_profile: bool = False):
     # ---- 6r-6s. the search-strength guardrails ------------------------------
     q_launches, q_shape, q_hbm, q_out = quality_phase(here, dev, card)
     ab_launches, ab_out = strength_phase(here, card)
+
+    # ---- 6t. the port's benchmark program ----------------------------------
+    (bm_launches, bm_label, bm_times, bm_floors, bm_out,
+     (bm_mcts, bm_roots)) = bench_phase(here, engine, eval_fn, params, dev,
+                                        card)
+    slice12_line = (
+        f"bench program: MCTS tier {bm_out['bench_mcts_rate']:,} sims/s, env "
+        f"tier {bm_out['env_rate']:,} env steps/s, self-play tier "
+        f"{bm_out['sp_rate']:,} sims/s; the MCTS tier in process "
+        f"{bm_out['mcts_rate']:,.0f} sims/s")
     slice11_line = (
         f"quality probe at 10,000 sims: pool side {q_out['pool_s']:.2f} s, "
         f"large-tree side {q_out['hbm_s']:.2f} s, TV mean "
@@ -3968,7 +4130,7 @@ def main(do_profile: bool = False):
         launches, p_launches, f_launches, r_launches, pit_launches,
         x1_launches, x_launches, g_launches, qd_launches, d_launches,
         b_launches, n_launches, s_launches, p_out_launches, q_launches,
-        ab_launches))))
+        ab_launches, bm_launches))))
         for name in REPLACES}
 
     # ---- 7. timing ---------------------------------------------------------
@@ -4050,6 +4212,9 @@ def main(do_profile: bool = False):
         profile_search(captured["mcts"], pit_params, pit_tree.state[:, 0],
                        card, "one pit half-batch search (64 games x 800 "
                        "sims, K=128, fresh trees)")
+        profile_search(bm_mcts, params, bm_roots, card,
+                       f"one bench MCTS-tier search ({bm_label}, 512 sims, "
+                       "fresh trees)")
     del captured
 
     def times(t):
@@ -4068,6 +4233,8 @@ def main(do_profile: bool = False):
                        f"player wave, {P_WAVE} rows":
                        times(player_times["fused_step"]),
                        "one row": times(one_row),
+                       f"bench MCTS wave, {bm_out['rows']} rows":
+                       times(bm_times["fused_step"]),
                        "launch_floor_ms": floor},
         "fused_step_legal": {f"player wave, {P_WAVE} rows":
                              times(player_times["fused_step_legal"])},
@@ -4082,7 +4249,8 @@ def main(do_profile: bool = False):
                           "chain_floor_ms": shape_floors[name]}
                   for label, shape_times, shape_floors in (
                       ("pit, B=64 K=128 M=1602 V=16", pit_times, pit_floors),
-                      qd_shape, d_shape, q_shape)}
+                      qd_shape, d_shape, q_shape,
+                      (bm_label, bm_times, bm_floors))}
            for name in POOL_TIER},
     }
     kernels = []
@@ -4121,7 +4289,7 @@ def main(do_profile: bool = False):
         + "; ".join(p_lines)
         + f"; Player: {p_rate:,.0f} rollouts/s over {P_MOVES} moves; "
         + train_line + "; " + slice9_line + "; " + slice10_line + "; "
-        + slice11_line)
+        + slice11_line + "; " + slice12_line)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,11 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def synchronize(device) -> None:
+    """Wait for the device's queued work (nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
 
 def setup_performance_defaults(device) -> None:
     """What every command line sets for its device (the counterpart of

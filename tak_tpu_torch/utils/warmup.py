@@ -26,18 +26,13 @@ import torch
 from ..mcts.reuse import blank_trees
 from ..mcts.search import MCTS
 from ..selfplay import SelfPlayActor, SelfPlayConfig
-
-
-def _force(device) -> None:
-    """Wait for the device's queued work (nothing to wait for on the CPU)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from .device import synchronize
 
 
 def _timed(log, device, name, fn):
     t0 = time.perf_counter()
     out = fn()
-    _force(device)
+    synchronize(device)
     log(f"[warmup] {name}: {time.perf_counter() - t0:.3f}s")
     return out
 

@@ -34,7 +34,7 @@ NEW_MODULES = ("analysis", "errors", "game", "player", "engine.tps",
                "utils.profiling", "cli.warmup", "graft_entry", "tools",
                "tools.quality", "tools.quality_recycle",
                "tools.quality_control", "tools.quality_k",
-               "tools.strength_ab")
+               "tools.strength_ab", "bench")
 
 
 def test_port_imports_no_jax_or_tak_tpu():
@@ -73,6 +73,11 @@ def test_cuda_request_without_card_raises():
         make_mesh()
     with pytest.raises(ValueError):
         make_mesh(backend="nccl", device="cpu")
+    # the benchmark program, before any tier runs
+    from tak_tpu_torch import bench
+
+    with pytest.raises(RuntimeError):
+        bench.main([])
 
 
 def test_training_entry_points_default_to_the_card():
