@@ -166,10 +166,10 @@ Phases, each fatal on failure:
      timed on each side's searched tree; `python -m
      tak_tpu_torch.tools.quality_k` at its defaults on the card;
   6s. the strength A/B (`tak_tpu_torch.tools.strength_ab`) on the trained
-     Net6: preset `recycle`, 8 games, 800 sims, cut to 24 plies, in
+     Net6: preset `recycle`, 8 games, 800 sims, cut to 16 plies, in
      process: the record's keys, game count and `wilson_ci`, #2-#4 and
      #8/#9 launched; then `--subprocess-rounds` over two child rounds of
-     4 games cut to 12 plies: two lines, the printed total their sum;
+     4 games cut to 8 plies: two lines, the printed total their sum;
      the peak RSS of this process before and after, and of the children;
   6t. the port's benchmark program, `python -m tak_tpu_torch.bench` at its
      defaults, as a subprocess: its one line has `bench.py`'s keys, names
@@ -181,6 +181,25 @@ Phases, each fatal on failure:
      16 pipelined waves: #2, #4 and #3 bitwise against their plain
      versions and timed beside bound and chain floor, and #1 bitwise and
      timed on that wave's 16,384 leaf rows;
+  6u. the profiling harnesses (`tak_tpu_torch.tools.profile_*`,
+     `diag_bn_mismatch`) in process from launch counts of 0, each
+     `main(argv, env)` (`U_RUNS`): at their defaults profile_kernels,
+     profile_wave (also `BENCH_RECYCLE=1`), profile_ab (pairs `topk` and
+     `fused-legal`), profile_hbm, profile_micro, the three profile_topk*
+     and profile_nn; with smaller knobs profile_selfplay (2,048 sims, 2
+     moves), profile_move_phases (one rep) and profile_recycle_grid (one
+     grid point at 2,048 sims); then `diag_bn_mismatch.run` (2 games, 64
+     sims, pits cut to 24 plies: `U_DIAG`) on a 6x6 checkpoint of the
+     trained Net6 and 1,000 seeded examples written by
+     `save_training_run`;
+     every time and rate on their lines finite and positive, profile_nn's
+     matmul towers within 2^-5 of the cuDNN tower's largest policy
+     magnitude, the exact top-K strategies equal to `torch.topk`, and
+     #1-#5, #8, #9 launched; then #2-#4 and #1 bitwise and timed at
+     B=256, V=16, K=64 on 514 nodes after 16 of 32 waves and on a full
+     recycled 1,280-node pool, and #8/#9 (with #1, #5 and the pool-tier
+     kernels on the same tree) at profile_hbm's B=32, V=8, K=96, M=20,002
+     and at profile_selfplay's default tree (V=16, K=128);
   7. time each kernel (CUDA events; a kernel launched twenty times back to
      back behind a spin long enough for the host to queue them all) and
      its plain version at the main paths' shapes, with the least time the
@@ -195,10 +214,11 @@ Phases, each fatal on failure:
      A kernel's `ms`, `plain_ms` and `bound_ms` are those of its main-path
      shape (the large-tree waves: the Player's own tree); `other_shapes`
      holds its times elsewhere (#2-#4 at the pit's, quad, dense Net5,
-     quality-probe and bench MCTS-tier shapes, #1 at the bench tier's
-     wave, #8/#9 at the quality probe's too), `launches_by_path` the
-     count of each path (the pit's, the quality probe's, the A/B's and the
-     bench MCTS tier's included).
+     quality-probe, bench MCTS-tier and the harnesses' shapes, #1 at the
+     bench tier's wave and the harnesses' leaf rows, #8/#9 at the quality
+     probe's and the harnesses' too), `launches_by_path` the count of
+     each path (the pit's, the quality probe's, the A/B's, the bench MCTS
+     tier's and the harnesses' included).
 
 `--profile` adds, before the last two lines, where one self-play move's
 search (with `fused_leaf_legal` off and on), one Player wave, one Net6
@@ -287,9 +307,9 @@ Q_CHUNK = 512
 Q_REF_K = 128
 AB_GAMES = 8                   # in-process round: games
 AB_SIMS = 800
-AB_PLIES = 24                  # its max_plies: the opening's 4 + 20 searched
+AB_PLIES = 16                  # its max_plies: the opening's 4 + 12 searched
 AB_SUB_GAMES = 4               # each of the two child rounds
-AB_SUB_PLIES = 12
+AB_SUB_PLIES = 8
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 BF16_OPS_PER_S = 989e12        # H100 SXM tensor cores, dense
@@ -311,7 +331,7 @@ HBM_TIER = ("descend_wave_hbm", "expand_backup_wave_hbm")
 PATHS = ("selfplay", "player", "fused_leaf_legal", "env_rollout", "pit",
          "xla_v1", "xla", "gumbel", "quad", "dense_net5", "bot",
          "native_replay", "sharded_rank0", "nccl_world1", "quality",
-         "strength_ab", "bench_mcts")
+         "strength_ab", "bench_mcts", "profiling_tools")
 SOURCES = {
     "fused_step": "tak_tpu_torch/csrc/fused_step.cu",
     "fused_step_legal": "tak_tpu_torch/csrc/fused_step_legal.cu",
@@ -345,27 +365,19 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, setup=None, spin: int = 1_000_000) -> float:
-    """Mean device milliseconds of fn(setup()) over `reps` runs (CUDA
-    events around each launch; `setup` runs outside the timed span).  The
-    card spins for `spin` cycles (about half a millisecond) ahead of the
-    first event, so that the host has queued the launch before the card
-    reaches it: the span holds the kernel and not the host's way to the
-    launch."""
+    """Mean device milliseconds of fn(setup()) over `reps` runs, each timed
+    alone by the harnesses' `tools.timing.span` (`setup` outside the span;
+    CUDA events behind a spin of `spin` cycles, about half a millisecond,
+    so that the host has queued the launch before the card reaches it: the
+    span holds the kernel and not the host's way to the launch)."""
     import torch
 
-    total = 0.0
-    for _ in range(reps):
-        arg = setup() if setup is not None else None
-        sync()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin)
-        start.record()
-        fn(arg)
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+    from tak_tpu_torch.tools.timing import span
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    wrap = (lambda: (setup(),)) if setup is not None else None
+    return sum(span(fn, dev, wrap, (None,), spin)[1]
+               for _ in range(reps)) * 1e3 / reps
 
 
 def launch_ms(fn, reps: int = 20) -> float:
@@ -3721,7 +3733,6 @@ def bench_phase(here, engine, eval_fn, params, dev, card):
     ms, bound ms, bound by)} with #1's, {kernel: chain floor ms}, numbers,
     (the MCTS, its roots) for `--profile`)."""
     from tak_tpu_torch import bench
-    from tak_tpu_torch.engine.fused_env import fused_step, step_plain
     from tak_tpu_torch.kernels import build as kb
     from tak_tpu_torch.mcts.search import MCTS
 
@@ -3765,41 +3776,329 @@ def bench_phase(here, engine, eval_fn, params, dev, card):
     B, M, Kk = tree.edge_n.shape
     label = (f"bench MCTS tier, B={B} K={Kk} M={M} V={scfg.wave_size} "
              f"A={engine.num_actions}")
+    times, floors, rows = check_pool_at(
+        "6t", mcts, params, tree, pending,
+        f"{label} (no recycling; {waves} of {scfg.num_waves} pipelined "
+        f"waves, {int(tree.next_free.float().mean())} nodes a tree on "
+        "average)", card)
+    if rows != B * scfg.wave_size:
+        fail(f"6t fused_step: {rows} rows, expected {B * scfg.wave_size}")
+    out = {"line": printed, "rows": rows, "mcts_rate": rate, "env_rate":
+           line["env_steps_per_s"], "bench_mcts_rate": line["value"],
+           "sp_rate": line["selfplay_sims_per_s"]}
+    return launches, label, times, floors, out, (mcts, roots)
+
+
+# ---------------------------------------------------------------------------
+# The thirteenth slice: the profiling harnesses (`tak_tpu_torch/tools/
+# profile_*.py`, `diag_bn_mismatch.py`) and the kernels at their shapes.
+# ---------------------------------------------------------------------------
+
+# the harnesses run in process with these knobs (the environment each
+# `main` reads); {} is the defaults
+U_RUNS = (
+    ("profile_kernels", [], {}),
+    ("profile_wave", [], {}),
+    ("profile_wave", [], {"BENCH_RECYCLE": "1"}),
+    ("profile_ab", [], {"BENCH_AB": "topk"}),
+    ("profile_ab", [], {"BENCH_AB": "fused-legal"}),
+    ("profile_hbm", [], {}),
+    ("profile_micro", [], {}),
+    ("profile_topk", [], {}),
+    ("profile_topk2", [], {}),
+    ("profile_topk3", [], {}),
+    ("profile_nn", [], {}),
+    ("profile_selfplay", [], {"SP_SIMS": "2048", "SP_MOVES": "2"}),
+    ("profile_move_phases", [], {"REPS": "1"}),
+    ("profile_recycle_grid", [], {"GRID": "[(1280,16,512)]",
+                                  "SP_SIMS": "2048"}),
+)
+# diag_bn_mismatch runs through its `run`, the function its `main` calls
+# after parsing flags, at `--games 2 --sims 64` with its pits cut from
+# 200 plies to U_DIAG["max_plies"] (its only cut: a drawn pit plays all
+# of them)
+U_DIAG = {"games": 2, "sims": 64, "max_plies": 24}
+U_EXAMPLES = 1000              # the diag workdir's seeded 6x6 examples
+# profile_nn: the 9-shift and im2col towers against cuDNN's, as a share of
+# the cuDNN policy's largest magnitude.  Each of the 34 layers rounds to
+# bf16 (2^-8 relative) after float32 sums taken in another order, and a
+# flipped rounding grows through the residual stack: on the H100 at the
+# default 4,096 rows the shares are 1.55% (9 shifts) and 1.29% (im2col),
+# on the CPU at 8 and 64 rows 1.1-1.2%.  The bound is twice the largest;
+# a wrong layout or shift gives shares near 1.
+NN_REL_BOUND = 2.0 ** -5
+
+
+def run_tool(name, call):
+    """call(the module `tak_tpu_torch.tools.<name>`) in this process on the
+    card, its output captured; fatal if it raises.  Returns (its return
+    value, its printed lines, wall seconds)."""
+    import importlib
+    import io
+
+    tool = importlib.import_module(f"tak_tpu_torch.tools.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = call(tool)
+    except Exception as e:  # surfaced with the tool's own lines
+        fail(f"6u {name} raised {type(e).__name__}: {e}\n"
+             f"{buf.getvalue()[-3000:]}")
+    sync()
+    return out, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def timing_values(name, lines):
+    """Every time and rate on the tool's lines; fatal unless there is one
+    and each parses to a finite positive number."""
+    import re
+
+    found = []
+    for line in lines:
+        for m in re.finditer(r"(-?[\d,]+(?:\.\d+)?)(k?) (ms|sims/s)\b", line):
+            x = float(m.group(1).replace(",", ""))
+            if not (math.isfinite(x) and x > 0):
+                fail(f"6u {name}: {m.group(0)!r} is not a finite positive "
+                     f"time or rate in {line!r}")
+            found.append(x)
+    if not found:
+        fail(f"6u {name} printed no timing line:\n" + "\n".join(lines))
+    return found
+
+
+def check_topk_strategies(dev):
+    """The exact top-K strategies of the harnesses equal `torch.topk` on
+    the card, at the harnesses' inputs: profile_topk's exact and compact
+    top-K on its 4,096 masked rows, profile_topk3's two-stage (c = 2, 4,
+    8, 18) and sorted-block top-K on its uniform rows."""
+    import numpy as np
+    import torch
+
+    from tak_tpu_torch.tools import profile_topk, profile_topk3
+
+    policy, legal = profile_topk.inputs(np.random.default_rng(0))
+    p = torch.as_tensor(policy, device=dev)
+    m = torch.as_tensor(legal, device=dev)
+    want = torch.topk(torch.where(m, p, torch.full_like(p, -1.0)),
+                      profile_topk.K)
+    x = torch.as_tensor(np.random.default_rng(0).random(
+        (4096, profile_topk3.A), np.float32), device=dev)
+    want3 = torch.topk(x, 64)
+    runs = [("profile_topk exact f32", profile_topk.exact_topk(m, p), want),
+            ("profile_topk compact+small topk",
+             profile_topk.compact_topk(m, p), want)]
+    runs += [(f"profile_topk3 two-stage c={c}",
+              profile_topk3.two_stage(x, c, 64), want3) for c in (2, 4, 8, 18)]
+    runs.append(("profile_topk3 sort128 blocks",
+                 profile_topk3.sorted_blocks(x, 64), want3))
+    for what, (v, i), (wv, wi) in runs:
+        if not (bool((v == wv).all()) and bool((i.long() == wi).all())):
+            fail(f"6u {what}: values or ids differ from torch.topk in "
+                 f"{int((v != wv).sum())} / {int((i.long() != wi).sum())} "
+                 "entries")
+    return len(runs)
+
+
+def diag_workdir(engine, rng, dev, root):
+    """A 6x6 checkpoint for `diag_bn_mismatch`, as a training run leaves
+    one: the trained Net6 and U_EXAMPLES seeded examples, written by the
+    port's `save_training_run` as generation 1."""
+    from tak_tpu_torch.examples import ReplayBuffer
+    from tak_tpu_torch.model.network import Network
+    from tak_tpu_torch.train_loop import save_training_run
+
+    buffer = ReplayBuffer()
+    buffer.extend(seeded_examples(engine, U_EXAMPLES, rng, dev))
+    variables = Network(engine, device=dev).load(NET6_WEIGHTS)
+    save_training_run(engine, variables, buffer, root, 1)
+    return root
+
+
+def check_pool_at(phase, mcts, params, tree, pending, label, card):
+    """#2, #4 and #3 bitwise against their plain versions on `tree` and its
+    pending wave, timed beside bound and chain floor; then #1 on the
+    merged wave's leaf rows, as `_leaf_states_of` gathers them, bitwise
+    and timed.  Returns ({kernel: (ms, plain ms, bound ms, bound by)} with
+    #1's, {kernel: chain floor ms}, the leaf rows)."""
+    from tak_tpu_torch.engine.fused_env import fused_step, step_plain
+
     checks = hold_pool_kernels(mcts, tree, pending, f"at the {label}")
     times, floors, chase = time_pool_kernels(mcts, tree, pending, checks)
-    log(f"6t check and time pool tier at the {label} (no recycling; "
-        f"{waves} of {scfg.num_waves} pipelined waves, "
-        f"{int(tree.next_free.float().mean())} nodes a tree on average): "
-        f"#2, #4 and #3 bitwise equal to the plain versions; "
-        + pool_times_line(times, floors) + f"; {chase} on {card}")
-
-    # the fused step on the merged wave's leaves, as `_leaf_states_of`
-    # gathers them
+    pool_line = pool_times_line(times, floors)
     after, _, _, leaves = checks["backup_descend_wave"]
     parents, acts, live = mcts._leaf_step_inputs(after, leaves)
     parents = parents.map(lambda x: x.contiguous())
     acts, live = acts.contiguous(), live.contiguous()
     rows = acts.shape[0]
-    got = fused_step(engine, parents, acts, live)
-    want_states = step_plain(engine, parents, acts, live)
+    got = fused_step(mcts.engine, parents, acts, live)
+    want = step_plain(mcts.engine, parents, acts, live)
     sync()
-    compare_states(got, want_states, f"6t fused_step on {rows} leaf rows")
+    compare_states(got, want,
+                   f"{phase} fused_step on {rows} leaf rows ({label})")
     stepped = int((got.ply != parents.ply).sum())
-    if rows != B * scfg.wave_size or stepped == 0:
-        fail(f"6t fused_step: {rows} rows, {stepped} stepped")
-    del got, want_states
-    t_kernel = launch_ms(lambda: fused_step(engine, parents, acts, live))
-    t_plain = cuda_ms(lambda _: step_plain(engine, parents, acts, live), 2)
-    times["fused_step"] = (t_kernel, t_plain,
-                           *bound(*fused_step_work(parents, rows)))
-    log(f"6t check fused_step on one bench MCTS wave's {rows} leaf rows: "
-        f"bitwise equal ({stepped} stepped); kernel {t_kernel:.4f} ms, "
-        f"plain {t_plain:.3f} ms, bound {times['fused_step'][2]:.6f} ms "
-        f"({times['fused_step'][3]}) on {card}")
-    out = {"line": printed, "rows": rows, "mcts_rate": rate, "env_rate":
-           line["env_steps_per_s"], "bench_mcts_rate": line["value"],
-           "sp_rate": line["selfplay_sims_per_s"]}
-    return launches, label, times, floors, out, (mcts, roots)
+    if stepped == 0:
+        fail(f"{phase} fused_step ({label}): no leaf row was stepped")
+    del got, want
+    times["fused_step"] = (
+        launch_ms(lambda: fused_step(mcts.engine, parents, acts, live)),
+        cuda_ms(lambda _: step_plain(mcts.engine, parents, acts, live), 2),
+        *bound(*fused_step_work(parents, rows)))
+    log(f"{phase} check and time pool tier at the {label}: #2, #4 and #3 "
+        f"bitwise equal to the plain versions; {pool_line}; {chase}; #1 on "
+        f"the merged wave's {rows} leaf rows bitwise equal ({stepped} "
+        f"stepped), {times['fused_step'][0]:.4f} ms (plain "
+        f"{times['fused_step'][1]:.3f} ms, bound "
+        f"{times['fused_step'][2]:.6f} ms by {times['fused_step'][3]}) on "
+        f"{card}")
+    return times, floors, rows
+
+
+def profiling_kernels_phase(engine, eval_fn, params, dev, card):
+    """The kernels at the harnesses' shapes, bitwise against their plain
+    versions and timed: #2-#4 and #1 at profile_kernels' and profile_wave's
+    B=256, V=16, K=64 on 514 nodes (no recycling) after 16 of the search's
+    32 waves, and on a recycled 1,280-node pool filled by three searches
+    (BENCH_RECYCLE=1's pool, full); #8/#9 (with #1, #5 and the pool-tier kernels on the
+    same tree) at profile_hbm's B=32, V=8, K=96, M=20,002 after its 8
+    waves, and at profile_selfplay's default tree (B=32, V=16, K=128,
+    M=20,002: the large-tree tier) after 40 waves.  Returns {shape label:
+    times} for `other_shapes`."""
+    from tak_tpu_torch.mcts.search import MCTS, SearchConfig
+    from tak_tpu_torch.selfplay import SelfPlayActor, SelfPlayConfig
+    from tak_tpu_torch.bench import mcts_roots
+
+    pool_shapes, hbm_shapes = {}, {}
+    start = mcts_roots(engine, 256, dev)
+    for recycle in (False, True):
+        cfg = SearchConfig(num_sims=512, wave_size=16, max_children=64,
+                           recycle=recycle,
+                           node_budget=1280 if recycle else None)
+        mcts = MCTS(engine, eval_fn, cfg)
+        tree = mcts.prepare_root(params, mcts.init_batch(start))
+        if recycle:
+            # one search of 512 sims fills 513 nodes: search until full
+            for _ in range(3):
+                mcts.run_sims(params, tree)
+            pending = grow_pipelined(mcts, params, tree, 2)
+            if not bool((tree.next_free == cfg.max_nodes).all()):
+                fail(f"6u recycled pool not full: {tree.next_free.max()}")
+            label = (f"profile_wave BENCH_RECYCLE=1, B=256 K=64 M=1280 "
+                     f"V=16 (full, recycling) A={engine.num_actions}")
+        else:
+            pending = grow_pipelined(mcts, params, tree, cfg.num_waves // 2)
+            label = (f"profile_kernels/profile_wave, B=256 K=64 "
+                     f"M={cfg.max_nodes} V=16 A={engine.num_actions}, "
+                     f"{cfg.num_waves // 2} of {cfg.num_waves} waves")
+        if mcts.tier != "pool":
+            fail(f"6u {label}: tier {mcts.tier}")
+        pool_shapes[label] = check_pool_at("6u", mcts, params, tree,
+                                           pending, label, card)[:2]
+        del tree, pending
+
+    hbm_cfg = SearchConfig(num_sims=64, wave_size=8, max_children=96,
+                           node_budget=20002, backend="pallas_hbm")
+    sp = SelfPlayActor(engine, eval_fn, SelfPlayConfig(
+        workers=32, search=SearchConfig(num_sims=10000, wave_size=16,
+                                        max_children=128)), device=dev)
+    start = mcts_roots(engine, 32, dev)
+    for mcts, waves, label in (
+            (MCTS(engine, eval_fn, hbm_cfg), hbm_cfg.num_waves,
+             "profile_hbm, B=32 K=96 M=20002 V=8"),
+            (sp.mcts, 40, "profile_selfplay's default tree, B=32 K=128 "
+             "M=20002 V=16, 40 waves")):
+        if mcts.tier != "hbm" or mcts.config.max_nodes != 20002:
+            fail(f"6u {label}: tier {mcts.tier}, {mcts.config}")
+        tree = mcts.prepare_root(params, mcts.init_batch(start))
+        for _ in range(waves):
+            mcts._wave_hbm(params, tree)
+        hbm_shapes[label] = check_hbm_on_tree(mcts, params, tree,
+                                              f"6u {label}", card)
+        del tree
+    return pool_shapes, hbm_shapes
+
+
+def profiling_phase(engine, eval_fn, params, dev, card, rng):
+    """6u: the profiling harnesses on the card.  Each tool's `main` runs in
+    this process (U_RUNS: the defaults, or smaller knobs where the default
+    run takes minutes), then `diag_bn_mismatch.run` (U_DIAG) on a
+    checkpoint written here, their lines captured: every time and rate of a profiling tool must parse
+    finite and positive, profile_nn's matmul towers must agree with the
+    cuDNN tower within NN_REL_BOUND of its largest policy magnitude,
+    profile_topk3's spot check must hold, and the exact top-K strategies
+    must equal `torch.topk` here.  The tools run from launch counts of 0:
+    #1-#5, #8 and #9 must each have launched.  Then the kernels at the
+    harnesses' shapes (`profiling_kernels_phase`).  Returns (the tools'
+    launches, {tool run: (wall s, lines)}, the shapes' times)."""
+    import torch
+
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.model.network import Network
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        workdir = diag_workdir(engine, rng, dev, root)
+        net = Network(engine, device=dev)
+        sync()
+        kb.reset_launches()
+        summary = {}
+        runs = [(name, name + "".join(f" {k}={v}" for k, v in env.items()),
+                 lambda tool, argv=argv, env=env: tool.main(argv, env))
+                for name, argv, env in U_RUNS]
+        runs.append(("diag_bn_mismatch", "diag_bn_mismatch " + " ".join(
+            f"{k}={v}" for k, v in U_DIAG.items()),
+            lambda tool: tool.run(engine, net, workdir, device=dev,
+                                  log=lambda m: print(m, flush=True),
+                                  **U_DIAG)))
+        for name, key, call in runs:
+            out, lines, wall = run_tool(name, call)
+            # diag_bn_mismatch prints no timing line, as the JAX script
+            values = ([] if name == "diag_bn_mismatch"
+                      else timing_values(name, lines))
+            summary[key] = (wall, lines)
+            note = ""
+            if name == "profile_nn":
+                shares = {d: out[d] / out["max_abs_policy"]
+                          for d in ("d_mm", "d_im2col")}
+                note = (f"; of the cuDNN policy's largest magnitude "
+                        f"{out['max_abs_policy']:.4f}: d_mm "
+                        f"{shares['d_mm']:.6f}, d_im2col "
+                        f"{shares['d_im2col']:.6f} (bound {NN_REL_BOUND})")
+                summary[key] = (wall, lines + [note[2:]])
+                for d, share in shares.items():
+                    if not share <= NN_REL_BOUND:
+                        fail(f"6u profile_nn: {d} {out[d]} is {share:.6f} "
+                             f"of {out['max_abs_policy']}, above "
+                             f"{NN_REL_BOUND}")
+            if name == "profile_topk3" and out["match"] is not True:
+                fail("6u profile_topk3: two-stage c=8 values differ")
+            if name == "diag_bn_mismatch" and not (
+                    out["examples"] == U_EXAMPLES and out["generation"] == 1
+                    and len(out["results"]) == 3):
+                fail(f"6u diag_bn_mismatch: {lines}")
+            log(f"6u {key}: {len(lines)} lines, {len(values)} times and "
+                f"rates, {wall:.1f} s; last: {lines[-1].strip()}{note} on "
+                f"{card}")
+        sync()
+        launches = dict(kb.LAUNCHES)
+    tools_s = time.perf_counter() - t0
+    for kernel in POOL_TIER + HBM_TIER + ("fused_step", "fused_step_legal"):
+        if launches.get(kernel, 0) <= 0:
+            fail(f"6u: kernel {kernel} was not launched by the harnesses: "
+                 f"{launches}")
+    for kernel in ("legal_sampler", "env_rollout"):
+        if launches.get(kernel, 0) != 0:
+            fail(f"6u: kernel {kernel} launched by the harnesses")
+    checked = check_topk_strategies(dev)
+    log(f"6u the {len(runs)} harness runs in {tools_s:.1f} s on {card}; "
+        f"launches {launches}; {checked} exact top-K strategies equal "
+        "torch.topk")
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    shapes = profiling_kernels_phase(engine, eval_fn, params, dev, card)
+    log(f"6u kernel checks at the harnesses' shapes in "
+        f"{time.perf_counter() - t1:.1f} s")
+    return launches, summary, shapes
 
 
 def make_actor(engine, eval_fn, dev, moves, mesh=None, **search_options):
@@ -4077,6 +4376,13 @@ def main(do_profile: bool = False):
     (bm_launches, bm_label, bm_times, bm_floors, bm_out,
      (bm_mcts, bm_roots)) = bench_phase(here, engine, eval_fn, params, dev,
                                         card)
+
+    # ---- 6u. the profiling harnesses ---------------------------------------
+    u_launches, u_summary, (u_pool, u_hbm) = profiling_phase(
+        engine, eval_fn, params, dev, card, rng)
+    slice13_line = "harnesses: " + "; ".join(
+        f"{key} {wall:.1f} s ({lines[-1].strip()})"
+        for key, (wall, lines) in u_summary.items())
     slice12_line = (
         f"bench program: MCTS tier {bm_out['bench_mcts_rate']:,} sims/s, env "
         f"tier {bm_out['env_rate']:,} env steps/s, self-play tier "
@@ -4087,7 +4393,7 @@ def main(do_profile: bool = False):
         f"large-tree side {q_out['hbm_s']:.2f} s, TV mean "
         f"{q_out['tv_mean']:.4f}, top-1 {q_out['top1']:.3f}; quality_k "
         f"{q_out['quality_k_s']:.1f} s; strength A/B (8 games, 800 sims, "
-        f"20 plies) {ab_out['wall_s']:.2f} s, {ab_out['plies_per_s']:.2f} "
+        f"{AB_PLIES - 4} plies) {ab_out['wall_s']:.2f} s, {ab_out['plies_per_s']:.2f} "
         f"plies/s; two child rounds {ab_out['sub_wall_s']:.1f} s, their peak "
         f"RSS {', '.join(f'{x:,.0f}' for x in ab_out['child_rss_mib'])} MiB")
     slice10_line = (
@@ -4130,7 +4436,7 @@ def main(do_profile: bool = False):
         launches, p_launches, f_launches, r_launches, pit_launches,
         x1_launches, x_launches, g_launches, qd_launches, d_launches,
         b_launches, n_launches, s_launches, p_out_launches, q_launches,
-        ab_launches, bm_launches))))
+        ab_launches, bm_launches, u_launches))))
         for name in REPLACES}
 
     # ---- 7. timing ---------------------------------------------------------
@@ -4235,22 +4541,32 @@ def main(do_profile: bool = False):
                        "one row": times(one_row),
                        f"bench MCTS wave, {bm_out['rows']} rows":
                        times(bm_times["fused_step"]),
+                       **{f"{label}, leaf rows": times(t["fused_step"])
+                          for label, (t, _) in u_pool.items()},
+                       **{f"{label}, leaf rows": times(out["fused_step"])
+                          for label, out in u_hbm.items()},
                        "launch_floor_ms": floor},
         "fused_step_legal": {f"player wave, {P_WAVE} rows":
-                             times(player_times["fused_step_legal"])},
+                             times(player_times["fused_step_legal"]),
+                             **{f"{label}, leaf rows":
+                                times(out["fused_step_legal"])
+                                for label, out in u_hbm.items()}},
         "legal_sampler": {"given words":
                           times(rollout_times["legal_sampler, given words"])},
         **{name: {"check tree": hbm_times(hbm_check, name),
                   f"player wave {P_WIDE}": hbm_times(wide_times, name),
                   f"quality probe, B={Q_GAMES} K={Q_REF_K} M="
-                  f"{2 * Q_SIMS + 2} V={Q_WAVE}": hbm_times(q_hbm, name)}
+                  f"{2 * Q_SIMS + 2} V={Q_WAVE}": hbm_times(q_hbm, name),
+                  **{label: hbm_times(out, name)
+                     for label, out in u_hbm.items()}}
            for name in HBM_TIER},
         **{name: {label: {**times(shape_times[name]),
                           "chain_floor_ms": shape_floors[name]}
                   for label, shape_times, shape_floors in (
                       ("pit, B=64 K=128 M=1602 V=16", pit_times, pit_floors),
                       qd_shape, d_shape, q_shape,
-                      (bm_label, bm_times, bm_floors))}
+                      (bm_label, bm_times, bm_floors),
+                      *((label, t, f) for label, (t, f) in u_pool.items()))}
            for name in POOL_TIER},
     }
     kernels = []
@@ -4289,7 +4605,7 @@ def main(do_profile: bool = False):
         + "; ".join(p_lines)
         + f"; Player: {p_rate:,.0f} rollouts/s over {P_MOVES} moves; "
         + train_line + "; " + slice9_line + "; " + slice10_line + "; "
-        + slice11_line + "; " + slice12_line)
+        + slice11_line + "; " + slice12_line + "; " + slice13_line)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,7 +34,37 @@ NEW_MODULES = ("analysis", "errors", "game", "player", "engine.tps",
                "utils.profiling", "cli.warmup", "graft_entry", "tools",
                "tools.quality", "tools.quality_recycle",
                "tools.quality_control", "tools.quality_k",
-               "tools.strength_ab", "bench")
+               "tools.strength_ab", "bench", "tools.timing",
+               "tools.profile_selfplay", "tools.profile_move_phases",
+               "tools.profile_ab", "tools.profile_recycle_grid",
+               "tools.profile_wave", "tools.profile_kernels",
+               "tools.profile_hbm", "tools.profile_micro",
+               "tools.profile_topk", "tools.profile_topk2",
+               "tools.profile_topk3", "tools.profile_nn",
+               "tools.diag_bn_mismatch")
+PROFILING_TOOLS = tuple(m for m in NEW_MODULES
+                        if m.startswith(("tools.profile_", "tools.diag_"))
+                        or m == "tools.timing")
+
+# importing a harness runs nothing: no output, no device, no kernel build,
+# no argument parsing (each reads its knobs inside `main`)
+IMPORT_PROBE = r"""
+import sys
+import torch
+import tak_tpu_torch.kernels.build as kb
+
+def touched(*a, **k):
+    raise SystemExit("touched: " + repr(a)[:80])
+
+torch.cuda._lazy_init = touched
+torch.cuda.init = touched
+kb.build = kb.library = touched
+sys.argv = ["probe", "--no-such-flag"]
+import importlib
+for name in MODULES:
+    importlib.import_module("tak_tpu_torch." + name)
+assert not torch.cuda.is_initialized()
+"""
 
 
 def test_port_imports_no_jax_or_tak_tpu():
@@ -48,6 +78,14 @@ def test_port_imports_no_jax_or_tak_tpu():
     have = lines["HAVE"].split(",")
     for name in NEW_MODULES:
         assert f"tak_tpu_torch.{name}" in have, name
+
+
+def test_importing_the_profiling_tools_runs_nothing():
+    probe = IMPORT_PROBE.replace("MODULES", repr(PROFILING_TOOLS))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout == "" and out.stderr == "", (out.stdout, out.stderr)
 
 
 def test_cuda_request_without_card_raises():
@@ -191,3 +229,23 @@ def test_guardrail_tools_default_to_the_card(tmp_path):
         strength_ab.main(tiny + ["--blocks", "1", "--subprocess-rounds",
                                  "--json-out", str(out)])
     assert not out.exists()
+
+
+def test_profiling_tools_default_to_the_card(tmp_path):
+    """Every profiling harness and `diag_bn_mismatch` run on the CUDA device
+    unless given `--cpu`: without a card each `main` raises before it
+    builds anything."""
+    import importlib
+
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for name in PROFILING_TOOLS:
+        if name == "tools.timing":
+            continue
+        tool = importlib.import_module(f"tak_tpu_torch.{name}")
+        argv = (["--workdir", str(tmp_path)]
+                if name == "tools.diag_bn_mismatch" else [])
+        with pytest.raises(RuntimeError, match="cuda"):
+            tool.main(argv, {})
