@@ -1,0 +1,13 @@
+"""The whole self-play step's share of the card's bf16 dense peak: rows
+evaluated in the window times the forward operations of a row (the
+configuration's frozen count) over the traced window and the peak."""
+
+from benchmark.reference import counts
+
+
+def read(trace):
+    rows = trace.counts.get("rows", 0)
+    if not rows or trace.window_s <= 0:
+        return None
+    flops = rows * trace.extras["flops_per_row"]
+    return 100.0 * flops / trace.window_s / counts.BF16_FLOPS_PER_S
