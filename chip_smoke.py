@@ -221,10 +221,12 @@ Phases, each fatal on failure:
      tier's and the harnesses' included).
 
 `--profile` adds, before the last two lines, where one self-play move's
-search (with `fused_leaf_legal` off and on), one Player wave, one Net6
-optimizer step (stages, one BatchNorm alone, device time by kernel family),
+search (with `fused_leaf_legal` off and on), 200 Player waves, one Net6
+optimizer step (also one BatchNorm alone, device time by kernel family),
 one pit half-batch search and one bench MCTS-tier search spend their
-time (per-stage host timers, then torch.profiler device time).
+time: the program's spans under `utils.profiling.trace` (calls, host
+self ms and device ms by `tak.` range, no synchronisation added), then
+torch.profiler's device time by kernel.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 `tak_tpu_torch` package beside this file.
@@ -1072,44 +1074,15 @@ def entry_points_phase(here, card):
         f"on {card}")
 
 
-@contextlib.contextmanager
-def timed_stages(patches):
-    """Wrap each (object, attribute, stage name) callable in a synchronized
-    host timer; yields the {stage: seconds} totals and restores the
-    callables on exit."""
-    stages = collections.defaultdict(float)
-
-    def timed(name, fn):
-        def wrapper(*a, **k):
-            sync()
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            sync()
-            stages[name] += time.perf_counter() - t
-            return out
-        return wrapper
-
-    saved = [(obj, attr, obj.__dict__.get(attr)) for obj, attr, _ in patches]
-    for obj, attr, name in patches:
-        setattr(obj, attr, timed(name, getattr(obj, attr)))
-    try:
-        yield stages
-    finally:
-        for obj, attr, old in saved:
-            if old is None:
-                delattr(obj, attr)
-            else:
-                setattr(obj, attr, old)
-
-
-def log_stages(stages, wall, what, card, per=1):
-    log(f"profile stages (synchronized host timers, {what}, "
-        f"{wall * 1e3 / per:.3f} ms wall on {card}):")
-    for name, sec in sorted(stages.items(), key=lambda kv: -kv[1]):
-        log(f"  {name}: {sec * 1e3 / per:.3f} ms ({100 * sec / wall:.1f}%)")
-    rest = wall - sum(stages.values())
-    log(f"  other host work: {rest * 1e3 / per:.3f} ms "
-        f"({100 * rest / wall:.1f}%)")
+def device_events(prof) -> list:
+    """The device-side entries of `prof.key_averages()` (kernels, copies;
+    an operator's own entry repeats the time of the kernels it launched),
+    without the program's `tak.` ranges, which the profiler mirrors on the
+    device's timeline as annotations spanning their kernels."""
+    return [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("tak.")]
 
 
 def device_profile(run, what, card):
@@ -1129,10 +1102,7 @@ def device_profile(run, what, card):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    # device-side events only (kernels, copies): an operator's own entry
-    # repeats the time of the kernels it launched
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    events = device_events(prof)
     busy = sum(dev_us(e) for e in events) / 1e3
     log(f"profile device (torch.profiler, {what}): wall "
         f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
@@ -1142,57 +1112,37 @@ def device_profile(run, what, card):
         log(f"  {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
+def traced(run, what, card):
+    """`run()` under `utils.profiling.trace`: the program's table by
+    `tak.` range (calls, host self ms, device ms of the kernels launched
+    inside) for `what`."""
+    from tak_tpu_torch.utils.profiling import trace
+
+    log(f"profile ranges ({what}, on {card}):")
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp, log=log):
+            run()
+
+
 def profile_search(mcts, params, root_states, card, what=None):
     """Where one search (by default a self-play move's: 10,240 sims on 32
-    games) spends its time: once with a synchronized host timer around
-    each stage of every wave, once under torch.profiler."""
-    from tak_tpu_torch.mcts import search as search_mod
-
-    patches = [(search_mod, "backup_descend_wave", "tree kernel (merged)"),
-               (search_mod, "expand_backup_wave", "tree kernel (flush)"),
-               (search_mod, "masked_topk", "masked top-K"),
-               (search_mod, "masked_topk_packed", "masked top-K (packed words)"),
-               (mcts, "_leaf_states_of", "leaf gather + fused step"),
-               (mcts, "eval_fn", "observe + network"),
-               (mcts.engine, "legal_mask", "legal mask"),
-               (mcts, "_write_nodes", "write nodes")]
+    games) spends its time: once under `utils.profiling.trace` (the
+    program's spans by wave stage), once under torch.profiler."""
     what = what or ("one self-play move's search, fused_leaf_legal="
                     f"{mcts.config.fused_leaf_legal}")
     tree = mcts.prepare_root(params, mcts.init_batch(root_states))
-    with timed_stages(patches) as stages:
-        sync()
-        t0 = time.perf_counter()
-        mcts.run_sims(params, tree)
-        sync()
-        wall = time.perf_counter() - t0
-    log_stages(stages, wall, what, card)
+    traced(lambda: mcts.run_sims(params, tree), what, card)
     tree = mcts.prepare_root(params, mcts.init_batch(root_states))
     device_profile(lambda: mcts.run_sims(params, tree), what, card)
 
 
 def profile_player(player, card, waves=200):
-    """Where one Player wave spends its time, as the mean over `waves`
-    waves on the player's current (carried) tree: per-stage synchronized
-    host timers, then torch.profiler; and what `debug()` and the reroot of
-    `play_move` cost at this tree size."""
-    from tak_tpu_torch.mcts import search as search_mod
-
-    mcts = player.mcts
-    patches = [(search_mod, "descend_wave_hbm", "descend kernel"),
-               (search_mod, "expand_backup_wave_hbm", "expand+backup kernel"),
-               (search_mod, "masked_topk", "masked top-K"),
-               (mcts, "_leaf_states_of", "leaf gather + fused step"),
-               (mcts, "eval_fn", "observe + network"),
-               (mcts.engine, "legal_mask", "legal mask"),
-               (mcts, "_write_nodes", "write nodes")]
+    """Where `waves` Player waves on the player's current (carried) tree
+    spend their time: under `utils.profiling.trace`, then torch.profiler;
+    and what `debug()` and the reroot of `play_move` cost at this tree
+    size."""
     player.rollout(20)
-    with timed_stages(patches) as stages:
-        sync()
-        t0 = time.perf_counter()
-        player.rollout(waves)
-        sync()
-        wall = time.perf_counter() - t0
-    log_stages(stages, wall, f"one Player wave, mean of {waves}", card, waves)
+    traced(lambda: player.rollout(waves), f"{waves} Player waves", card)
     device_profile(lambda: player.rollout(waves),
                    f"{waves} Player waves", card)
     sync()
@@ -2337,11 +2287,12 @@ def train_cli_phase(here, card):
 
 
 def profile_learner_step(net, variables, examples, card):
-    """Where one Net6 optimizer step (20 chunks of 500 x 8 rows) spends its
-    time: synchronized host timers around its stages; one BatchNorm's
-    forward and backward at a chunk's shape (CUDA events) times the step's
-    BatchNorms; then torch.profiler's device time by kernel family and the
-    device's idle share."""
+    """Where one Net6 optimizer step (a `Network.train` call on 20 chunks
+    of 500 x 8 rows) spends its time: under `utils.profiling.trace` (the
+    program's spans by prestack, chunk assembly, forward and backward,
+    step); one BatchNorm's forward and backward at a chunk's shape (CUDA
+    events) times the step's BatchNorms; then torch.profiler's device
+    time by kernel family and the device's idle share."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2349,41 +2300,18 @@ def profile_learner_step(net, variables, examples, card):
     from tak_tpu_torch.model.network import CHUNK_SIZE, CHUNKS_IN_STEP
     from tak_tpu_torch.model.resnet import BatchNorm
 
-    model = net._train_model(variables)
-    opt = net.make_optimizer(model.parameters())
-    pre = net._prestack(examples[:CHUNK_SIZE * CHUNKS_IN_STEP])
-    idx = [np.arange(i * CHUNK_SIZE, (i + 1) * CHUNK_SIZE)
-           for i in range(CHUNKS_IN_STEP)]
-    stages = collections.defaultdict(float)
-
-    def timed(name, fn, *a):
-        t = time.perf_counter()
-        out = fn(*a)
-        sync()
-        stages[name] += time.perf_counter() - t
-        return out
+    part = examples[:CHUNK_SIZE * CHUNKS_IN_STEP]
 
     def step():
-        for i in idx:
-            states, acts, vis, z = timed(
-                "host chunk assembly + copy to the card", net._chunk_arrays,
-                pre, i)
-            planes, pi, z = timed(
-                "observe + targets + symmetry",
-                lambda: net._symmetry_expand(net.observe_batch(states),
-                                             net._build_pi(acts, vis), z))
-            loss, _, _ = timed("forward + loss", net._loss, model, planes,
-                               pi, z)
-            timed("backward", loss.backward)
-        timed("Adam step", lambda: (opt.step(), opt.zero_grad()))
+        net.train(variables, part, rng=np.random.default_rng(0),
+                  log=lambda *a, **k: None)
+        sync()
 
     step()
-    stages.clear()
-    sync()
     t0 = time.perf_counter()
     step()
     wall = time.perf_counter() - t0
-    log_stages(stages, wall, "one Net6 optimizer step", card)
+    traced(step, "one Net6 optimizer step", card)
 
     bn = BatchNorm(net.config.filters).to(net.device).train()
     n = net.config.n
@@ -2397,7 +2325,8 @@ def profile_learner_step(net, variables, examples, card):
     log(f"profile BatchNorm (CUDA events): one forward + backward at "
         f"{tuple(x.shape)} {net.config.dtype}, channels-last as in training, "
         f"{ms:.3f} ms (contiguous NCHW {ms_nchw:.3f} ms); x {count} "
-        f"BatchNorms x {len(idx)} chunks = {ms * count * len(idx):.1f} ms of "
+        f"BatchNorms x {CHUNKS_IN_STEP} chunks = "
+        f"{ms * count * CHUNKS_IN_STEP:.1f} ms of "
         f"the step's {wall * 1e3:.1f} ms; its least time from bytes (bf16: "
         f"forward reads x and writes y, backward reads dy and x and writes "
         f"dx) {5 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3:.3f} ms, on {card}")
@@ -2427,18 +2356,16 @@ def profile_learner_step(net, variables, examples, card):
         return "other kernels (BatchNorm, loss, observe, symmetry, copies)"
 
     families = collections.defaultdict(float)
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            families[family(e.key.lower())] += dev_us(e) / 1e3
+    events = device_events(prof)
+    for e in events:
+        families[family(e.key.lower())] += dev_us(e) / 1e3
     busy = sum(families.values())
     log(f"profile device (torch.profiler, one Net6 optimizer step): wall "
         f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms, idle "
         f"{100 - 100 * busy / (wall * 1e3):.1f}% on {card}")
     for fam, ms_f in sorted(families.items(), key=lambda kv: -kv[1]):
         log(f"  {ms_f:9.2f} ms  {fam}")
-    top = sorted((e for e in prof.key_averages()
-                  if str(getattr(e, "device_type", "")).endswith("CUDA")),
-                 key=lambda e: -dev_us(e))[:12]
+    top = sorted(events, key=lambda e: -dev_us(e))[:12]
     for e in top:
         log(f"  {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} "
             f"[{family(e.key.lower()).split(' (')[0]}] {e.key[:80]}")

@@ -63,6 +63,7 @@ import torch
 from ..engine.legal_bits import masked_topk_packed
 from ..parallel.mesh import gather_rows, shard_rows
 from ..types import ONGOING, GameState, result_winner
+from ..utils.profiling import count, span
 from .tree import NONE, TENSOR_FIELDS, Tree, init_tree, root_visit_counts
 from .tree_kernels import (
     Pending,
@@ -327,18 +328,21 @@ class MCTS:
     @torch.no_grad()
     def prepare_root(self, params, tree: Tree) -> Tree:
         """Expand unexpanded roots with one evaluation (rollout #1)."""
-        need = ~tree.expanded[:, 0]
-        if not bool(need.any()):
+        with span("search.prepare_root"):
+            need = ~tree.expanded[:, 0]
+            with span("search.root_need", sync=True):
+                if not bool(need.any()):
+                    return tree
+            root_states = tree.state[:, 0]
+            policy, _ = self.eval_fn(params, root_states)
+            legal = self.engine.legal_mask(root_states)
+            m = need[:, None]
+            tree.root_prior.copy_(torch.where(m, policy.float(),
+                                              tree.root_prior))
+            tree.root_legal.copy_(torch.where(m, legal, tree.root_legal))
+            tree.n0 += need.int()
+            tree.expanded[:, 0] |= need
             return tree
-        root_states = tree.state[:, 0]
-        policy, _ = self.eval_fn(params, root_states)
-        legal = self.engine.legal_mask(root_states)
-        m = need[:, None]
-        tree.root_prior.copy_(torch.where(m, policy.float(), tree.root_prior))
-        tree.root_legal.copy_(torch.where(m, legal, tree.root_legal))
-        tree.n0 += need.int()
-        tree.expanded[:, 0] |= need
-        return tree
 
     def add_noise(self, gen, tree: Tree, alpha: float, ratio: float,
                   apply_mask, mesh=None) -> Tree:
@@ -378,24 +382,27 @@ class MCTS:
         """Every leaf's state with one fused step: step(state[parent],
         parent_action).  Returns (flat states [B*V], the leaves' packed
         legal words (place, spread) with `fused_leaf_legal`, else None)."""
-        inputs = self._leaf_step_inputs(tree, leaves)
-        if self.config.fused_leaf_legal:
-            flat, place, spread = self.engine.step_legal(*inputs)
-            return flat, (place, spread)
-        return self.engine.step(*inputs), None
+        with span("search.leaf_step"):
+            inputs = self._leaf_step_inputs(tree, leaves)
+            if self.config.fused_leaf_legal:
+                flat, place, spread = self.engine.step_legal(*inputs)
+                return flat, (place, spread)
+            return self.engine.step(*inputs), None
 
     def _write_nodes(self, tree: Tree, leaves, created, flat_states: GameState,
                      leaf_results) -> None:
         """Write created nodes' states and results (unique indices)."""
         B, V = leaves.shape
-        g, v = torch.nonzero(created, as_tuple=True)
-        idx = leaves[g, v].long()
-        for f in ("stacks", "heights", "tops", "to_move", "ply", "stones",
-                  "caps", "half_komi", "reversible", "result"):
-            src = getattr(flat_states, f)
-            getattr(tree.state, f)[g, idx] = src.reshape(
-                (B, V) + tuple(src.shape[1:]))[g, v]
-        tree.result[g, idx] = leaf_results[g, v]
+        with span("search.write_nodes"):
+            with span("search.nonzero", sync=True):
+                g, v = torch.nonzero(created, as_tuple=True)
+            idx = leaves[g, v].long()
+            for f in ("stacks", "heights", "tops", "to_move", "ply",
+                      "stones", "caps", "half_komi", "reversible", "result"):
+                src = getattr(flat_states, f)
+                getattr(tree.state, f)[g, idx] = src.reshape(
+                    (B, V) + tuple(src.shape[1:]))[g, v]
+            tree.result[g, idx] = leaf_results[g, v]
 
     @torch.no_grad()
     def _eval_and_topk(self, params, tree: Tree, leaves, created) -> Pending:
@@ -404,14 +411,16 @@ class MCTS:
         B, V = leaves.shape
         K = self.config.max_children
         flat, fused_legal = self._leaf_states_of(tree, leaves)
-        policy, value = self.eval_fn(params, flat)
+        with span("search.eval"):
+            policy, value = self.eval_fn(params, flat)
         leaf_results = flat.result.reshape(B, V)
-        if fused_legal is not None:
-            vals, aidx = masked_topk_packed(self.engine, policy, *fused_legal,
-                                            K)
-        else:
-            legal = self.engine.legal_mask(flat)
-            vals, aidx = masked_topk(policy, legal, K, self.topk_impl)
+        with span("search.legal_topk"):
+            if fused_legal is not None:
+                vals, aidx = masked_topk_packed(self.engine, policy,
+                                                *fused_legal, K)
+            else:
+                legal = self.engine.legal_mask(flat)
+                vals, aidx = masked_topk(policy, legal, K, self.topk_impl)
         self._write_nodes(tree, leaves, created, flat, leaf_results)
         return Pending(
             leaves=leaves.to(torch.int32).contiguous(),
@@ -423,6 +432,14 @@ class MCTS:
             valid=1,
         )
 
+    def _wave(self, wave, *args):
+        """`wave(*args)`, one wave of any tier, inside its `search.wave`
+        span and counted in `search.waves`."""
+        with span("search.wave"):
+            out = wave(*args)
+        count("search.waves")
+        return out
+
     def _kernel_args(self):
         cfg = self.config
         return dict(base=float(cfg.exploration_base),
@@ -432,19 +449,22 @@ class MCTS:
         """Apply the previous wave's expansions and backups fused with this
         wave's descents (one merged kernel), then step/evaluate the new
         leaves.  Callers flush the final pending with the expand+backup."""
-        leaves, created = backup_descend_wave(tree, pending,
-                                              **self._kernel_args())
+        with span("search.tree_kernel"):
+            leaves, created = backup_descend_wave(tree, pending,
+                                                  **self._kernel_args())
         return self._eval_and_topk(params, tree, leaves, created)
 
     def _wave_hbm(self, params, tree: Tree) -> None:
         """One large-tier wave: descend -> step/evaluate/top-K ->
         expand+backup (`tak_tpu` search.py:860-876)."""
         cfg = self.config
-        leaves, created = descend_wave_hbm(
-            tree, cfg.wave_size, base=float(cfg.exploration_base),
-            init=float(cfg.exploration_init))
-        expand_backup_wave_hbm(
-            tree, self._eval_and_topk(params, tree, leaves, created))
+        with span("search.tree_kernel"):
+            leaves, created = descend_wave_hbm(
+                tree, cfg.wave_size, base=float(cfg.exploration_base),
+                init=float(cfg.exploration_init))
+        pending = self._eval_and_topk(params, tree, leaves, created)
+        with span("search.flush"):
+            expand_backup_wave_hbm(tree, pending)
 
     # -- the "xla" path: staggered descents in plain PyTorch ---------------
 
@@ -534,7 +554,10 @@ class MCTS:
         step = self._step_runner(tree, st, False)
         for _ in range(V):
             start()
-        while bool((st.cur != NONE).any()):
+        while True:
+            with span("search.descent_live", sync=True):
+                if not bool((st.cur != NONE).any()):
+                    break
             for _ in range(_CHECK_EVERY):
                 step()
         return st.leaf.clamp(min=0).to(torch.int32), st.created.clone()
@@ -723,8 +746,9 @@ class MCTS:
                           flat.result.reshape(B, -1))
         keep = ~((tree.result[bv, lv] != ONGOING) | (lv == 0)
                  | tree.expanded[bv, lv])
-        legal = self.engine.legal_mask(flat)
-        vals, aidx = masked_topk(policy, legal, K, self.topk_impl)
+        with span("search.legal_topk"):
+            legal = self.engine.legal_mask(flat)
+            vals, aidx = masked_topk(policy, legal, K, self.topk_impl)
         ok = vals >= 0.0
         rows = bv * M + lv
         for f, v in (("edge_action", torch.where(ok, aidx,
@@ -761,9 +785,10 @@ class MCTS:
         sign = torch.full(tuple(cur.shape), -1.0, device=cur.device)
         i = 0
         while True:
-            if i > 0 and i % _CHECK_EVERY == 0 \
-                    and not bool((cur != NONE).any()):
-                break
+            if i > 0 and i % _CHECK_EVERY == 0:
+                with span("search.backup_live", sync=True):
+                    if not bool((cur != NONE).any()):
+                        break
             alive = cur != NONE
             gi = bv * M + cur.clamp(min=0)
             p = tree.parent.view(-1)[gi].long()
@@ -792,13 +817,17 @@ class MCTS:
         """One "xla" wave: descents, the leaves' fused step, the network,
         node writes and expansion, then the backups."""
         B, V = tree.n0.shape[0], self.config.wave_size
-        leaves, created = self._descend_xla(tree, gumbel, wave_idx * V)
-        flat = self.engine.step(*self._leaf_step_inputs(tree, leaves))
-        policy, value = self.eval_fn(params, flat)
+        with span("search.tree_kernel"):
+            leaves, created = self._descend_xla(tree, gumbel, wave_idx * V)
+        with span("search.leaf_step"):
+            flat = self.engine.step(*self._leaf_step_inputs(tree, leaves))
+        with span("search.eval"):
+            policy, value = self.eval_fn(params, flat)
         self._write_and_expand(tree, leaves, created, flat, policy)
         values = self._leaf_values(tree, leaves, flat.to_move.reshape(B, V),
                                    value.float().reshape(B, V))
-        self._backup_xla(tree, leaves, values)
+        with span("search.flush"):
+            self._backup_xla(tree, leaves, values)
 
     # -- Gumbel root search (sequential halving), "xla" path -------------------
 
@@ -881,8 +910,9 @@ class MCTS:
     @torch.no_grad()
     def _run_sims_gumbel(self, params, tree: Tree, gumbel) -> Tree:
         """`run_sims_gumbel` with the Gumbel sample given [B, A]."""
-        for w in range(self.config.num_waves):
-            self._wave_xla(params, tree, gumbel, w)
+        with span("search"):
+            for w in range(self.config.num_waves):
+                self._wave(self._wave_xla, params, tree, gumbel, w)
         return tree
 
     def select_moves_gumbel(self, tree: Tree, gumbel) -> torch.Tensor:
@@ -919,22 +949,23 @@ class MCTS:
         if cfg.scan_chunk:
             chunk = min(total, -(-cfg.scan_chunk // cfg.wave_size))
         chunks = -(-total // chunk)
-        if self.tier == "xla":
-            for _ in range(chunks * chunk):
-                self._wave_xla(params, tree)
-            return tree
-        if self.tier == "hbm":
-            for _ in range(chunks * chunk):
-                self._wave_hbm(params, tree)
-            return tree
-        B = tree.n0.shape[0]
-        for _ in range(chunks):
-            pending = Pending.zeros(B, cfg.wave_size, cfg.max_children,
-                                    tree.n0.device)
-            for _ in range(chunk):
-                pending = self._wave_pipelined(params, tree, pending)
-            expand_backup_wave(tree, pending,
-                               recycle=self._kernel_args()["recycle"])
+        with span("search"):
+            if self.tier in ("xla", "hbm"):
+                wave = (self._wave_xla if self.tier == "xla"
+                        else self._wave_hbm)
+                for _ in range(chunks * chunk):
+                    self._wave(wave, params, tree)
+                return tree
+            B = tree.n0.shape[0]
+            for _ in range(chunks):
+                pending = Pending.zeros(B, cfg.wave_size, cfg.max_children,
+                                        tree.n0.device)
+                for _ in range(chunk):
+                    pending = self._wave(self._wave_pipelined, params, tree,
+                                         pending)
+                with span("search.flush"):
+                    expand_backup_wave(tree, pending,
+                                       recycle=self._kernel_args()["recycle"])
         return tree
 
     def select_moves(self, gen, tree: Tree, exploit,
@@ -948,7 +979,9 @@ class MCTS:
         visits = gather_rows(mesh, root_visit_counts(tree))
         greedy = _last_argmax(visits)
         exploit = exploit.to(visits.device)
-        if bool(exploit.all()):
+        with span("search.exploit_all", sync=True):
+            all_exploit = bool(exploit.all())
+        if all_exploit:
             return shard_rows(mesh, greedy.to(torch.int32))
         probs = visits.float()
         empty = probs.sum(-1, keepdim=True) <= 0

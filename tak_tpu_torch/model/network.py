@@ -43,6 +43,7 @@ from ..engine.observe import observe
 from ..sizes import input_channels, move_channels
 from ..types import GameState
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 from .resnet import BN_EPS, BatchNorm, NetConfig, TakResNet
 
 LEARNING_RATE = 1e-4
@@ -274,7 +275,10 @@ class Network:
         return observe(self.engine, states)
 
     def policy_eval_states(self, variables: dict, states):
-        return self.policy_eval(variables, self.observe_batch(states))
+        with span("network.observe"):
+            planes = self.observe_batch(states)
+        with span("network.forward"):
+            return self.policy_eval(variables, planes)
 
     # -- training ------------------------------------------------------------
 
@@ -290,7 +294,10 @@ class Network:
         """A fresh unfolded module in train mode holding float32 copies of
         `variables` on the network's device; with `mesh`, its BatchNorms
         take global batch statistics."""
-        model = TakResNet(self.config).to(self.device)
+        model = TakResNet(self.config)
+        # one copy a tensor, each waiting for the card's queue
+        with span("train.upload_model", sync=len(model.state_dict())):
+            model = model.to(self.device)
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
         model.load_state_dict(variables)
@@ -368,8 +375,7 @@ class Network:
         the prestacked epoch; the sparse pairs are padded to a power-of-two
         width."""
         states, off, lens, cat_acts, cat_vis, z = pre
-        sub = GameState.from_numpy({k: v[idx] for k, v in states.items()},
-                                   self.device)
+        rows = {k: v[idx] for k, v in states.items()}
         l = lens[idx]
         width = 1 << max(int(l.max()) - 1, 0).bit_length()
         cols = np.arange(width, dtype=np.int64)[None, :]
@@ -381,7 +387,10 @@ class Network:
         def dev(x):
             return torch.as_tensor(x, device=self.device)
 
-        return sub, dev(acts), dev(vis), dev(z[idx])
+        # each copy from pageable host memory waits for the card's queue
+        with span("train.upload", sync=len(rows) + 3):
+            return (GameState.from_numpy(rows, self.device), dev(acts),
+                    dev(vis), dev(z[idx]))
 
     def _accum_chunk(self, model, states, acts, vis, z, world: int = 1):
         """Planes, targets and the 8x symmetry expansion of one chunk (this
@@ -428,39 +437,50 @@ class Network:
         chunk_size = chunk_size or CHUNK_SIZE
         chunks_in_step = chunks_in_step or CHUNKS_IN_STEP
         rng = rng or np.random.default_rng()
-        model = self._train_model(variables, mesh)
-        opt = self.make_optimizer(model.parameters())
-        world = 1 if mesh is None else mesh.world
+        with span("train"):
+            model = self._train_model(variables, mesh)
+            opt = self.make_optimizer(model.parameters())
+            world = 1 if mesh is None else mesh.world
 
-        def step(lp, lz, what):
-            lp, lz = all_reduce_sum(mesh, torch.stack([lp, lz])).tolist()
-            log(f"chunk {done}/{total_chunks} p={lp:.4f} z={lz:.4f} {what}")
-            all_reduce_grads(mesh, model.parameters())
-            opt.step()
+            def step(lp, lz, what):
+                with span("train.step"):
+                    both = all_reduce_sum(mesh, torch.stack([lp, lz]))
+                    with span("train.readback", sync=True):
+                        lp, lz = both.tolist()
+                    log(f"chunk {done}/{total_chunks} p={lp:.4f} z={lz:.4f} "
+                        f"{what}")
+                    all_reduce_grads(mesh, model.parameters())
+                    opt.step()
 
-        t0 = time.time()
-        pre = self._prestack(examples)
-        n_chunks = len(examples) // chunk_size
-        total_chunks = passes * n_chunks
-        log(f"train: prestacked {len(examples)} examples in "
-            f"{time.time() - t0:.1f}s; {n_chunks} chunks"
-            + (f" x {passes} passes" if passes > 1 else ""))
-        done = 0
-        for _ in range(passes):
-            order = rng.permutation(len(examples))
-            for i in range(n_chunks):
-                idx = order[i * chunk_size:(i + 1) * chunk_size]
-                lp, lz = self._accum_chunk(
-                    model, *self._chunk_arrays(pre, shard_rows(mesh, idx)),
-                    world)
-                done += 1
-                if done % chunks_in_step == 0:
-                    step(lp, lz, "step")
-                    opt.zero_grad()
-        if total_chunks % chunks_in_step != 0:
-            step(lp, lz, "step (trailing flush)")
-        dt = time.time() - t0
-        if dt > 0:
-            log(f"train: {total_chunks} chunks in {dt:.1f}s "
-                f"({total_chunks * chunk_size / dt:,.0f} examples/s)")
-        return {k: v.detach().clone() for k, v in model.state_dict().items()}
+            t0 = time.time()
+            with span("train.prestack"):
+                pre = self._prestack(examples)
+            n_chunks = len(examples) // chunk_size
+            total_chunks = passes * n_chunks
+            log(f"train: prestacked {len(examples)} examples in "
+                f"{time.time() - t0:.1f}s; {n_chunks} chunks"
+                + (f" x {passes} passes" if passes > 1 else ""))
+            done = 0
+            for _ in range(passes):
+                order = rng.permutation(len(examples))
+                for i in range(n_chunks):
+                    idx = order[i * chunk_size:(i + 1) * chunk_size]
+                    with span("train.chunk"):
+                        with span("train.assemble"):
+                            arrays = self._chunk_arrays(pre,
+                                                        shard_rows(mesh, idx))
+                        with span("train.forward_backward"):
+                            lp, lz = self._accum_chunk(model, *arrays, world)
+                    count("train.chunks")
+                    done += 1
+                    if done % chunks_in_step == 0:
+                        step(lp, lz, "step")
+                        opt.zero_grad()
+            if total_chunks % chunks_in_step != 0:
+                step(lp, lz, "step (trailing flush)")
+            dt = time.time() - t0
+            if dt > 0:
+                log(f"train: {total_chunks} chunks in {dt:.1f}s "
+                    f"({total_chunks * chunk_size / dt:,.0f} examples/s)")
+            return {k: v.detach().clone()
+                    for k, v in model.state_dict().items()}

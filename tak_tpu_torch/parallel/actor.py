@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .mesh import gather_rows, row_range
 
 
@@ -34,8 +35,9 @@ class ShardedEnv:
 
     def local(self, host) -> torch.Tensor:
         """This rank's rows of a host array over the whole batch, on the
-        device."""
-        return torch.as_tensor(host[self.rows], device=self.device)
+        device (a copy that waits for the card's queue)."""
+        with span("env.upload", sync=True):
+            return torch.as_tensor(host[self.rows], device=self.device)
 
     def step(self, states, actions, enabled=None):
         """Step this rank's rows by its rows of the host arrays `actions`

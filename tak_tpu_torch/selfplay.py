@@ -51,8 +51,9 @@ from .mcts.reuse import blank_trees, reroot
 from .mcts.search import MCTS, SearchConfig
 from .mcts.tree import root_visit_counts
 from .parallel.actor import ShardedEnv
-from .types import ONGOING, result_winner, where_state
+from .types import FIELDS, ONGOING, result_winner, where_state
 from .utils.device import resolve_device
+from .utils.profiling import span
 
 INSTANT_WIN_VISITS = 1000  # fake visits for winning moves (self_play.rs:131)
 # default node pool for recycled searches; eviction serves sim budgets far
@@ -146,11 +147,12 @@ class SelfPlayActor:
         else:
             any_win = torch.zeros_like(act)
         gather = self.env.gather
-        host = (gather(visits).cpu().numpy(), gather(states).to_numpy(),
-                gather(new_states.result).cpu().numpy(),
-                gather(new_states.ply).cpu().numpy(),
-                gather(any_win).cpu().numpy(),
-                gather(new_tree.next_free).cpu().numpy())
+        with span("selfplay.readback", sync=5 + len(FIELDS)):
+            host = (gather(visits).cpu().numpy(), gather(states).to_numpy(),
+                    gather(new_states.result).cpu().numpy(),
+                    gather(new_states.ply).cpu().numpy(),
+                    gather(any_win).cpu().numpy(),
+                    gather(new_tree.next_free).cpu().numpy())
         return new_tree, new_states, host
 
     def _root_targets(self, tree):
@@ -201,123 +203,152 @@ class SelfPlayActor:
         any_win_host = np.zeros(B, bool)  # fresh boards can't win in one
 
         while active.any():
-            fresh = (plies == 0) & active
-            if fresh.any():
-                first, second = self._opening_actions(rng, B)
-                states = env.step(states, first, fresh)
-                states = env.step(states, second, fresh)
-                plies[fresh] += 2
+            with span("selfplay.move"):
+                # openings, then the instant-win scan (its flag rides in
+                # the previous move's readback); the boards a win resets
+                # get theirs at once, until a search is due
+                while True:
+                    fresh = (plies == 0) & active
+                    if fresh.any():
+                        with span("selfplay.openings"):
+                            first, second = self._opening_actions(rng, B)
+                            states = env.step(states, first, fresh)
+                            states = env.step(states, second, fresh)
+                            plies[fresh] += 2
+                    reset_mask = np.zeros(B, bool)
+                    if cfg.instant_win_scan:
+                        any_win = any_win_host & active
+                        if any_win.any():
+                            with span("selfplay.instant_win",
+                                      sync=2 + len(FIELDS)):
+                                wins = env.gather(
+                                    engine.wins_in_one(states)).cpu().numpy()
+                                legal = env.gather(
+                                    engine.legal_mask(states)).cpu().numpy()
+                                host_states = env.gather(states).to_numpy()
+                            for i in np.nonzero(any_win)[0]:
+                                acts = np.nonzero(legal[i])[0].astype(np.int32)
+                                visits = np.where(wins[i][acts],
+                                                  INSTANT_WIN_VISITS,
+                                                  1).astype(np.int32)
+                                pending[i].append(Example(
+                                    state={k: v[i].copy()
+                                           for k, v in host_states.items()},
+                                    actions=acts, visits=visits))
+                                white = 1.0 if int(
+                                    host_states["to_move"][i]) == 0 else -1.0
+                                finish_slot(i, white)
+                                reset_mask[i] = True
+                        if reset_mask.any():
+                            any_win_host[reset_mask] = False
+                            plies[reset_mask] = 0
+                            if started < cfg.games:
+                                started += int(reset_mask.sum())
+                                states = self._reset(states, reset_mask)
+                            else:
+                                active &= ~reset_mask
+                            tree_stale |= reset_mask
+                    if not reset_mask.any() or not active.any():
+                        break
+                if not active.any():
+                    break
 
-            # instant-win scan: the flag rides in the previous move's readback
-            reset_mask = np.zeros(B, bool)
-            if cfg.instant_win_scan:
-                any_win = any_win_host & active
-                if any_win.any():
-                    wins = env.gather(engine.wins_in_one(states)).cpu().numpy()
-                    legal = env.gather(engine.legal_mask(states)).cpu().numpy()
-                    host_states = env.gather(states).to_numpy()
-                    for i in np.nonzero(any_win)[0]:
-                        acts = np.nonzero(legal[i])[0].astype(np.int32)
-                        visits = np.where(wins[i][acts], INSTANT_WIN_VISITS,
-                                          1).astype(np.int32)
+                # batched search (trees persist across moves when reuse is
+                # on)
+                t_move = time.perf_counter()
+                with span("selfplay.tree"):
+                    if tree is None or not cfg.tree_reuse:
+                        tree = self.mcts.init_batch(states)
+                        tree_stale[:] = False
+                    elif tree_stale.any():
+                        tree = blank_trees(tree, states,
+                                           env.local(tree_stale))
+                        tree_stale[:] = False
+                    tree = self.mcts.prepare_root(params, tree)
+                quad = (cfg.quad_rollout_plies > 0
+                        and int(plies[0]) < cfg.quad_rollout_plies)
+                if self._gumbel:
+                    tree, gumbel = self.mcts.run_sims_gumbel(params, tree,
+                                                             gen, mesh)
+                    with span("selfplay.select"):
+                        actions = self.mcts.select_moves_gumbel(tree, gumbel)
+                else:
+                    with span("selfplay.noise"):
+                        noise_mask = env.local((plies < cfg.noise_plies)
+                                               & active)
+                        tree = self.mcts.add_noise(gen, tree, cfg.noise_alpha,
+                                                   cfg.noise_ratio,
+                                                   noise_mask, mesh)
+                    tree = self.mcts.run_sims(params, tree)
+                    if quad:
+                        for _ in range(3):  # 4x total (self_play.rs:63-67)
+                            tree = self.mcts.run_sims(params, tree)
+                    # the whole batch's exploit flags: the choice is made on
+                    # every rank's gathered visits
+                    with span("selfplay.select"):
+                        with span("selfplay.upload", sync=True):
+                            exploit = torch.as_tensor(
+                                plies >= cfg.exploit_plies,
+                                device=self.device)
+                        actions = self.mcts.select_moves(gen, tree, exploit,
+                                                         mesh)
+                factor = 4 if quad else 1
+                move_sims = factor * self.search_config.num_waves * \
+                    self.search_config.wave_size
+                sims_done += factor * cfg.search.num_sims * int(active.sum())
+
+                with span("selfplay.tail"):
+                    tree, new_states, host = self._move_tail(
+                        tree, states, actions, active)
+                (visits_all, host_states, results, new_plies, any_win_next,
+                 next_free) = host
+                self.move_times.append((time.perf_counter() - t_move,
+                                        move_sims))
+
+                with span("selfplay.examples"):
+                    for i in range(B):
+                        if not active[i]:
+                            continue
+                        nz = np.nonzero(visits_all[i])[0].astype(np.int32)
                         pending[i].append(Example(
                             state={k: v[i].copy()
                                    for k, v in host_states.items()},
-                            actions=acts, visits=visits))
-                        white = 1.0 if int(host_states["to_move"][i]) == 0 \
-                            else -1.0
-                        finish_slot(i, white)
-                        reset_mask[i] = True
-                if reset_mask.any():
-                    any_win_host[reset_mask] = False
-                    plies[reset_mask] = 0
-                    if started < cfg.games:
-                        started += int(reset_mask.sum())
-                        states = self._reset(states, reset_mask)
-                    else:
-                        active &= ~reset_mask
-                    tree_stale |= reset_mask
-                    if not active.any():
-                        break
-                    continue  # fresh boards get openings next iteration
+                            actions=nz,
+                            visits=visits_all[i][nz].astype(np.int32)))
 
-            # batched search (trees persist across moves when reuse is on)
-            t_move = time.perf_counter()
-            if tree is None or not cfg.tree_reuse:
-                tree = self.mcts.init_batch(states)
-                tree_stale[:] = False
-            elif tree_stale.any():
-                tree = blank_trees(tree, states, env.local(tree_stale))
-                tree_stale[:] = False
-            tree = self.mcts.prepare_root(params, tree)
-            quad = (cfg.quad_rollout_plies > 0
-                    and int(plies[0]) < cfg.quad_rollout_plies)
-            if self._gumbel:
-                tree, gumbel = self.mcts.run_sims_gumbel(params, tree, gen,
-                                                         mesh)
-                actions = self.mcts.select_moves_gumbel(tree, gumbel)
-            else:
-                noise_mask = env.local((plies < cfg.noise_plies) & active)
-                tree = self.mcts.add_noise(gen, tree, cfg.noise_alpha,
-                                           cfg.noise_ratio, noise_mask, mesh)
-                tree = self.mcts.run_sims(params, tree)
-                if quad:
-                    for _ in range(3):  # 4x total (self_play.rs:63-67)
-                        tree = self.mcts.run_sims(params, tree)
-                # the whole batch's exploit flags: the choice is made on
-                # every rank's gathered visits
-                actions = self.mcts.select_moves(
-                    gen, tree, torch.as_tensor(plies >= cfg.exploit_plies,
-                                               device=self.device), mesh)
-            factor = 4 if quad else 1
-            move_sims = factor * self.search_config.num_waves * \
-                self.search_config.wave_size
-            sims_done += factor * cfg.search.num_sims * int(active.sum())
+                    states = new_states
+                    plies = new_plies.astype(np.int64)
+                    any_win_host = np.array(any_win_next)
+                    if cfg.tree_reuse and not self.search_config.recycle:
+                        room = self.search_config.max_nodes - \
+                            self._per_move_sims
+                        tree_stale |= next_free > room
 
-            tree, new_states, host = self._move_tail(tree, states, actions,
-                                                     active)
-            (visits_all, host_states, results, new_plies, any_win_next,
-             next_free) = host
-            self.move_times.append((time.perf_counter() - t_move, move_sims))
-
-            for i in range(B):
-                if not active[i]:
-                    continue
-                nz = np.nonzero(visits_all[i])[0].astype(np.int32)
-                pending[i].append(Example(
-                    state={k: v[i].copy() for k, v in host_states.items()},
-                    actions=nz, visits=visits_all[i][nz].astype(np.int32)))
-
-            states = new_states
-            plies = new_plies.astype(np.int64)
-            any_win_host = np.array(any_win_next)
-            if cfg.tree_reuse and not self.search_config.recycle:
-                room = self.search_config.max_nodes - self._per_move_sims
-                tree_stale |= next_free > room
-
-            reset_mask = np.zeros(B, bool)
-            for i in range(B):
-                if not active[i]:
-                    continue
-                if results[i] != ONGOING or new_plies[i] >= cfg.max_plies:
-                    winner = int(result_winner(results[i]))
-                    white = 1.0 if winner == 0 else (-1.0 if winner == 1
-                                                     else 0.0)
-                    finish_slot(i, white)
-                    reset_mask[i] = True
-                    log(f"game {completed}/{cfg.games} done "
-                        f"({new_plies[i]} plies, result {int(results[i])})")
-            if reset_mask.any():
-                tree_stale |= reset_mask
-                plies[reset_mask] = 0
-                any_win_host[reset_mask] = False
-                if started < cfg.games:
-                    started += int(reset_mask.sum())
-                    states = self._reset(states, reset_mask)
-                else:
-                    active &= ~reset_mask
-            if completed >= cfg.games:
-                break
+                    reset_mask = np.zeros(B, bool)
+                    for i in range(B):
+                        if not active[i]:
+                            continue
+                        if results[i] != ONGOING \
+                                or new_plies[i] >= cfg.max_plies:
+                            winner = int(result_winner(results[i]))
+                            white = 1.0 if winner == 0 else (
+                                -1.0 if winner == 1 else 0.0)
+                            finish_slot(i, white)
+                            reset_mask[i] = True
+                            log(f"game {completed}/{cfg.games} done "
+                                f"({new_plies[i]} plies, result "
+                                f"{int(results[i])})")
+                    if reset_mask.any():
+                        tree_stale |= reset_mask
+                        plies[reset_mask] = 0
+                        any_win_host[reset_mask] = False
+                        if started < cfg.games:
+                            started += int(reset_mask.sum())
+                            states = self._reset(states, reset_mask)
+                        else:
+                            active &= ~reset_mask
+                if completed >= cfg.games:
+                    break
 
         dt = time.time() - t_start
         if dt > 0:

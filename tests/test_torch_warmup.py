@@ -8,7 +8,6 @@ import json
 import re
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import torch
@@ -26,7 +25,7 @@ from tak_tpu_torch.model.network import Network
 from tak_tpu_torch.model.resnet import NetConfig
 from tak_tpu_torch.pit import PitConfig
 from tak_tpu_torch.selfplay import SelfPlayConfig
-from tak_tpu_torch.utils.profiling import RateMeter, trace
+from tak_tpu_torch.utils.profiling import trace
 from tak_tpu_torch.utils.warmup import warmup_generation
 
 REPO = Path(__file__).resolve().parents[1]
@@ -88,15 +87,3 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
     assert prof.key_averages()
-
-
-def test_rate_meter():
-    meter = RateMeter("sims")
-    meter.add(500)
-    meter.add(1500)
-    time.sleep(0.01)
-    assert meter.count == 2000
-    assert 0 < meter.rate < 2000 / 0.01
-    assert str(meter).endswith(" sims/s")
-    meter.reset()
-    assert meter.count == 0
