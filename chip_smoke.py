@@ -84,11 +84,20 @@ Phases, each fatal on failure:
   6d. card against CPU: one chunk of Net5 in float64 (125 examples) and in
      float32 (500), TF32 off, on the card and through the port on the CPU:
      the loss parts, the summed gradients and the new batch statistics
-     within the tolerances of `card_vs_cpu_phase`;
+     within the tolerances of `card_vs_cpu_phase` (the card's BatchNorms
+     on the `tak_bn_*` kernels, float64 ones included; the CPU's on the
+     plain Function);
   6e. the learner at the reference step: the trained Net6
      (`runs/train6_r4/_models/1787285471.model`), 20,000 seeded 6x6
      examples, 2 steps of 20 x 500 x 8 = 80,000 rows after a one-chunk
-     warm-up: examples/s, ms per step, the share of the bf16 peak;
+     warm-up: examples/s, ms per step, the share of the bf16 peak; every
+     BatchNorm of the 2 steps on the `tak_bn_*` kernels (six launches a
+     forward and backward) and none on the plain version; then the
+     kernels against the plain Function at a chunk's shape (4,000 x 128 x
+     6 x 6, bf16, channels-last; `batch_norm_phase`): y and dx within one
+     bf16 step, statistics and parameter gradients within stated float32
+     tolerances, and their forward and backward times beside the byte
+     floor and the plain version's;
   6f. the pit at its defaults (128 games, 800 sims, wave 16, K=128, a
      1,602-node pool, tree reuse) cut to max_plies 16, its only cut: the
      trained Net6 against 6e's candidate; plies/s and ms per half-batch
@@ -218,7 +227,10 @@ Phases, each fatal on failure:
      bench tier's wave and the harnesses' leaf rows, #8/#9 at the quality
      probe's and the harnesses' too), `launches_by_path` the count of
      each path (the pit's, the quality probe's, the A/B's, the bench MCTS
-     tier's and the harnesses' included).
+     tier's and the harnesses' included).  The tenth entry, `batch_norm`
+     (`csrc/batch_norm.cu`), replaces no TPU kernel (`replaces` null):
+     one forward and backward at a Net6 chunk's shape (`other_shapes`
+     splits them), its launches those of 6e's two steps.
 
 `--profile` adds, before the last two lines, where one self-play move's
 search (with `fused_leaf_legal` off and on), 200 Player waves, one Net6
@@ -280,6 +292,8 @@ NET5_BUFFER = "runs/train5_r3/_checkpoint/buffer.data"
 NET5_EXAMPLES = 28_215         # real 5x5 self-play examples
 NET6_WEIGHTS = "runs/train6_r4/_models/1787285471.model"
 L6_EXAMPLES = 20_000           # 2 optimizer steps of 20 chunks of 500
+BN_ROWS = 4_000                # a learner chunk: 500 examples x 8 symmetries
+BN_CHANNELS = 128              # Net6's filters
 PIT_PLIES = 16                 # the pit's max_plies: its only cut
 PIT_CHECK_PLY = 8              # the pit tree that the kernel checks start from
 PIT_CHECK_WAVES = 10           # pipelined waves grown on it before the checks
@@ -1815,6 +1829,8 @@ def learner_net6_phase(dev, card, rng):
     import numpy as np
 
     from tak_tpu_torch.engine.core import get_engine
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.model.batch_norm import BatchNormPlain
     from tak_tpu_torch.model.network import (
         CHUNK_SIZE,
         CHUNKS_IN_STEP,
@@ -1831,18 +1847,45 @@ def learner_net6_phase(dev, card, rng):
     _, t_warm, _ = train_run(net, variables, examples[:CHUNK_SIZE],
                              np.random.default_rng(0), "Net6 warm-up",
                              chunks_in_step=1)
-    new, wall, steps = train_run(net, variables, examples,
-                                 np.random.default_rng([0, 7]),
-                                 "Net6 learner")
+    # every train-mode BatchNorm goes through the tak_bn_* kernels: six
+    # launches each a chunk, and no CUDA tensor reaches the plain version
+    plain_devices = []
+    plain_forward = BatchNormPlain.forward
+
+    def spy(ctx, x, *rest):
+        plain_devices.append(x.device.type)
+        return plain_forward(ctx, x, *rest)
+
+    before = dict(kb.LAUNCHES)
+    BatchNormPlain.forward = staticmethod(spy)
+    try:
+        new, wall, steps = train_run(net, variables, examples,
+                                     np.random.default_rng([0, 7]),
+                                     "Net6 learner")
+    finally:
+        BatchNormPlain.forward = staticmethod(plain_forward)
     if len(steps) != L6_EXAMPLES // (CHUNK_SIZE * CHUNKS_IN_STEP):
         fail(f"Net6 learner took {len(steps)} steps")
+    bns = (1 + 2 * net.config.blocks) * L6_EXAMPLES // CHUNK_SIZE
+    bn_launches = {k: v for k, v in launches_since(before).items()
+                   if k.startswith("tak_bn_")}
+    want = {"tak_bn_stats": bns, "tak_bn_finalize": 2 * bns,
+            "tak_bn_normalize": bns, "tak_bn_grad_sums": bns,
+            "tak_bn_grad_input": bns}
+    if bn_launches != want or plain_devices:
+        fail(f"Net6 learner: launches {bn_launches}, expected {want}; the "
+             f"plain BatchNorm ran on {plain_devices[:3]}")
+    log(f"Net6 learner: every one of its {bns:,} BatchNorm forwards and "
+        f"backwards ran on the tak_bn_* kernels ({bn_launches}), none on "
+        "the plain version")
     rows = CHUNKS_IN_STEP * CHUNK_SIZE * 8
     fwd = forward_flops_per_row(net.config)
     step_flops = 3 * fwd * rows
     ms_step = wall * 1e3 / len(steps)
     share = step_flops / (ms_step / 1e3) / BF16_OPS_PER_S
     out = {"examples_per_s": L6_EXAMPLES / wall, "ms_per_step": ms_step,
-           "bf16_share": share, "step_tflop": step_flops / 1e12}
+           "bf16_share": share, "step_tflop": step_flops / 1e12,
+           "bn_launches": bn_launches}
     log(f"learner Net6 ({describe(net.config)}) at the reference step: "
         f"{L6_EXAMPLES} seeded examples made in {t_make:.1f} s; warm-up "
         f"(one chunk, one step) {t_warm:.2f} s; {len(steps)} steps of "
@@ -1853,6 +1896,165 @@ def learner_net6_phase(dev, card, rng):
         f"{100 * share:.1f}% of the bf16 peak of {BF16_OPS_PER_S / 1e12:.0f} "
         f"TFLOP/s, on {card}")
     return out, net, variables, new, examples
+
+
+def bf16_steps(got, want, terms):
+    """Per element, |got - want| over one bf16 step (ulp) at the larger
+    magnitude of the two, after a float32 slack of 2^-14 of `terms` (the
+    magnitude of what was summed into the element before it was rounded:
+    the two sides' float32 statistics differ in their summation order)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    big = torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return ((g - w).abs() - terms * 2.0 ** -14).clamp(min=0) / ulp
+
+
+def batch_norm_phase(dev, card):
+    """The `tak_bn_*` kernels against the plain Function on the card, at the
+    learner's shape: 4,000 x 128 x 6 x 6 in bf16, channels-last, per-channel
+    offsets and scales, one constant channel (its variance may clip), the
+    running statistics starting at 0 (so that after one call they hold
+    0.01 x the batch statistics).  Fatal unless y and dx lie within one
+    bf16 step (`bf16_steps`), the batch statistics within 1e-5 and the
+    parameter gradients within 1e-4 of their largest entry, and dx within
+    one bf16 step of the float64 plain version's too.  Then times the
+    forward and the backward of each (CUDA events, `launch_ms`) beside the
+    byte floor (3 and 5 passes over x at 3.35 TB/s), and the host's cost
+    of the kernels' forward and backward through autograd.  Returns the
+    times."""
+    import torch
+
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.model.batch_norm import (
+        BatchNormKernel,
+        BatchNormPlain,
+    )
+
+    rows, C, n = BN_ROWS, BN_CHANNELS, N
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    scale = torch.rand(C, 1, 1, generator=g, device=dev) * 2 + 0.1
+    shift = torch.randn(C, 1, 1, generator=g, device=dev)
+    x = torch.randn((rows, C, n, n), generator=g, device=dev) * scale + shift
+    x[:, 7] = 0.3
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    dy = (torch.randn((rows, C, n, n), generator=g, device=dev)
+          .to(torch.bfloat16).contiguous(memory_format=torch.channels_last))
+    weight = torch.rand(C, generator=g, device=dev) + 0.5
+    bias = torch.randn(C, generator=g, device=dev)
+
+    def run(fn, xin, dyin):
+        xg = xin.detach().clone().requires_grad_()
+        w, b = weight.clone().requires_grad_(), bias.clone().requires_grad_()
+        rm = torch.zeros(C, device=dev)
+        rv = torch.zeros(C, device=dev)
+        y = fn.apply(xg, w, b, rm, rv, None)
+        y.backward(dyin)
+        return y.detach(), xg.grad, w.grad, b.grad, rm, rv
+
+    before = dict(kb.LAUNCHES)
+    k = run(BatchNormKernel, x, dy)
+    sync()
+    launched = launches_since(before)
+    want = {"tak_bn_stats": 1, "tak_bn_finalize": 2, "tak_bn_normalize": 1,
+            "tak_bn_grad_sums": 1, "tak_bn_grad_input": 1}
+    if launched != want:
+        fail(f"BatchNorm kernels launched {launched}, expected {want}")
+    p = run(BatchNormPlain, x, dy)
+    e = run(BatchNormPlain, x.double(), dy.double())
+    sync()
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max())
+
+    mean = p[4] / 0.01
+    var = p[5] / 0.01
+    inv = torch.rsqrt(var + 1e-5)
+    xhat = (x.float() - mean[:, None, None]) * inv[:, None, None]
+    y_terms = (xhat.abs() * weight[:, None, None].abs()
+               + bias[:, None, None].abs())
+    count = rows * n * n            # dx = (dy - mdy - xhat * mdyx) * a
+    mdy, mdyx = p[3] / count, p[2] / count
+    dx_terms = ((dy.float().abs() + mdy.abs()[:, None, None]
+                 + xhat.abs() * mdyx.abs()[:, None, None])
+                * (weight * inv).abs()[:, None, None])
+    err = {
+        "y_steps": float(bf16_steps(k[0], p[0], y_terms).max()),
+        "dx_steps": float(bf16_steps(k[1], p[1], dx_terms).max()),
+        "dx_steps_f64": float(bf16_steps(k[1], e[1], dx_terms).max()),
+        "mean": rel(k[4], p[4]),
+        "var": rel(k[5], p[5]),
+        "dweight": rel(k[2], p[2]),
+        "dbias": rel(k[3], p[3]),
+    }
+    limits = {"y_steps": 1, "dx_steps": 1, "dx_steps_f64": 1, "mean": 1e-5,
+              "var": 1e-5, "dweight": 1e-4, "dbias": 1e-4}
+    exact = {"y": float((k[0] != p[0]).float().mean()),
+             "dx": float((k[1] != p[1]).float().mean())}
+    log(f"check BatchNorm kernels against the plain Function ({rows} x {C} "
+        f"x {n} x {n}, bf16, channels-last): y and dx differ from the plain "
+        f"version's in {100 * exact['y']:.3f}% and {100 * exact['dx']:.3f}% "
+        f"of elements, by at most {err['y_steps']:.2f} and "
+        f"{err['dx_steps']:.2f} bf16 steps (beyond 2^-14 of the terms); dx "
+        f"{err['dx_steps_f64']:.2f} steps from float64's; batch mean "
+        f"{err['mean']:.1e}, variance {err['var']:.1e}, dweight "
+        f"{err['dweight']:.1e}, dbias {err['dbias']:.1e} (relative); limits "
+        + ", ".join(f"{a} {b:g}" for a, b in limits.items()))
+    if any(err[a] > b for a, b in limits.items()):
+        fail("BatchNorm kernels disagree with the plain Function")
+
+    # device times of the forward's and the backward's launches alone,
+    # back to back (`launch_ms`), the Function's own steps called with a
+    # stand-in for autograd's context; then the host's cost of a forward
+    # and backward through autograd, on a tensor small enough that the
+    # card never holds the host back
+    class Ctx:
+        def save_for_backward(self, *tensors):
+            self.saved_tensors = tensors
+
+    out = {}
+    for name, fn in (("kernel", BatchNormKernel), ("plain", BatchNormPlain)):
+        ctx = Ctx()
+
+        def fwd():
+            fn.forward(ctx, x, weight, bias, torch.zeros(C, device=dev),
+                       torch.zeros(C, device=dev), None)
+
+        fwd()
+        out[name] = (launch_ms(fwd), launch_ms(lambda: fn.backward(ctx, dy)))
+    small = x[:8].detach().requires_grad_()
+    small_dy = dy[:8]
+
+    def host_step():
+        BatchNormKernel.apply(small, weight, bias, torch.zeros(C, device=dev),
+                              torch.zeros(C, device=dev),
+                              None).backward(small_dy)
+
+    for _ in range(20):
+        host_step()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        host_step()
+    sync()
+    out["host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    nbytes = x.numel() * x.element_size()
+    bound = (3 * nbytes / HBM_BYTES_PER_S * 1e3,
+             5 * nbytes / HBM_BYTES_PER_S * 1e3)
+    out["bound"] = bound
+    out["err"] = err
+    log(f"time BatchNorm at {rows} x {C} x {n} x {n} bf16: kernels forward "
+        f"{out['kernel'][0]:.4f} ms, backward {out['kernel'][1]:.4f} ms "
+        f"(byte floor {bound[0]:.4f} and {bound[1]:.4f} ms: 3 and 5 passes "
+        f"over x at 3.35 TB/s); plain forward {out['plain'][0]:.3f} ms, "
+        f"backward {out['plain'][1]:.3f} ms; x {1 + 2 * 16} BatchNorms a "
+        f"Net6 chunk: {(1 + 2 * 16) * sum(out['kernel']):.2f} ms against "
+        f"{(1 + 2 * 16) * sum(out['plain']):.2f} ms plain; the host's cost "
+        f"of a forward and backward through autograd {out['host_us']:.1f} "
+        f"us, on {card}")
+    return out
 
 
 def card_vs_cpu_phase(dev, card, variables, examples):
@@ -2297,6 +2499,7 @@ def profile_learner_step(net, variables, examples, card):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from tak_tpu_torch.model.batch_norm import BatchNormPlain
     from tak_tpu_torch.model.network import CHUNK_SIZE, CHUNKS_IN_STEP
     from tak_tpu_torch.model.resnet import BatchNorm
 
@@ -2319,17 +2522,22 @@ def profile_learner_step(net, variables, examples, card):
                     device=net.device, dtype=net.config.dtype)
     xl = x.to(memory_format=torch.channels_last).requires_grad_()
     ms = cuda_ms(lambda _: bn(xl).float().sum().backward(), 5)
-    ms_nchw = cuda_ms(lambda _: bn(x.requires_grad_()).float().sum()
-                      .backward(), 5)
+
+    def plain(_):
+        BatchNormPlain.apply(xl, bn.weight, bn.bias, bn.running_mean,
+                             bn.running_var, None).float().sum().backward()
+
+    ms_plain = cuda_ms(plain, 5)
     count = 1 + 2 * net.config.blocks
     log(f"profile BatchNorm (CUDA events): one forward + backward at "
         f"{tuple(x.shape)} {net.config.dtype}, channels-last as in training, "
-        f"{ms:.3f} ms (contiguous NCHW {ms_nchw:.3f} ms); x {count} "
+        f"{ms:.3f} ms (the plain Function {ms_plain:.3f} ms); x {count} "
         f"BatchNorms x {CHUNKS_IN_STEP} chunks = "
         f"{ms * count * CHUNKS_IN_STEP:.1f} ms of "
         f"the step's {wall * 1e3:.1f} ms; its least time from bytes (bf16: "
-        f"forward reads x and writes y, backward reads dy and x and writes "
-        f"dx) {5 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3:.3f} ms, on {card}")
+        f"forward reads x twice and writes y, backward reads dy and x twice "
+        f"and writes dx) {8 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3:.3f} ms, "
+        f"on {card}")
 
     sync()
     with profile(activities=[ProfilerActivity.CPU,
@@ -4271,6 +4479,7 @@ def main(do_profile: bool = False):
     agree = card_vs_cpu_phase(dev, card, vars5, buf5.examples)
     del vars5, buf5
     l6, net6, vars6, cand6, ex6 = learner_net6_phase(dev, card, rng)
+    bn_times = batch_norm_phase(dev, card)
     pit_launches, pit_out, captured = pit_phase(engine, net6, vars6, cand6,
                                                 dev, card)
     pit_times, pit_floors = pit_kernels_phase(captured, card)
@@ -4524,6 +4733,29 @@ def main(do_profile: bool = False):
         if name in other_shapes:
             entry["other_shapes"] = other_shapes[name]
         kernels.append(entry)
+    # train-mode BatchNorm: no TPU kernel (flax's nn.BatchNorm is XLA's);
+    # one forward and backward at a Net6 chunk's shape, the Net6 learner's
+    # launches
+    (k_f, k_b), (p_f, p_b) = bn_times["kernel"], bn_times["plain"]
+    log(f"time batch_norm: kernels {k_f + k_b:.4f} ms (forward {k_f:.4f}, "
+        f"backward {k_b:.4f}), plain {p_f + p_b:.3f} ms, bound "
+        f"{sum(bn_times['bound']):.4f} ms (bytes); launches "
+        f"{l6['bn_launches']}, on {card}")
+    kernels.append({
+        "name": "batch_norm", "route": "cuda",
+        "source": "tak_tpu_torch/csrc/batch_norm.cu", "replaces": None,
+        "launches": sum(l6["bn_launches"].values()),
+        "launches_by_path": {"learner_net6": l6["bn_launches"]},
+        "max_bf16_steps": max(bn_times["err"]["y_steps"],
+                              bn_times["err"]["dx_steps"]),
+        "ms": k_f + k_b, "plain_ms": p_f + p_b,
+        "bound_ms": sum(bn_times["bound"]), "bound_by": "bytes",
+        "library_ms": None,
+        "other_shapes": {"forward": {"ms": k_f, "plain_ms": p_f,
+                                     "bound_ms": bn_times["bound"][0]},
+                         "backward": {"ms": k_b, "plain_ms": p_b,
+                                      "bound_ms": bn_times["bound"][1]}},
+    })
     # the end-to-end numbers again, next to the result lines
     log(f"summary on {card}: build {t_build:.1f} s; "
         + "; ".join(move_lines)

@@ -16,7 +16,8 @@ float32 PUCT arithmetic bit for bit, so `-fmad=false` also keeps the
 compiler from contracting a multiply and an add into one rounding.
 
 Launch counters: each wrapper adds one to `LAUNCHES[<kernel name>]` where
-it launches its kernel, and nowhere else.
+it launches its kernel, and nowhere else (the BatchNorm kernels count
+under their C entry points' names, `tak_bn_*`).
 """
 
 from __future__ import annotations
@@ -34,14 +35,14 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "tak_tpu_torch"
 SOURCES = ("fused_step", "fused_step_legal", "env_rollout", "tree_wave",
-           "tree_wave_hbm")
+           "tree_wave_hbm", "batch_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_U = ctypes.c_uint
+_U, _L, _D = ctypes.c_uint, ctypes.c_longlong, ctypes.c_double
 # C entry points: (library, argtypes); every one returns cudaGetLastError()
 SIGNATURES = {
     # n, rows, 10 input state fields, 10 output fields, action, enabled,
@@ -75,6 +76,13 @@ SIGNATURES = {
     "tak_parent_chase": ("tree_wave_hbm", [_I] * 3 + [_P] * 4),
     # B, M, K, A, V, D, root_child, edge_child, actions, slots, ends, stream
     "tak_child_chase": ("tree_wave_hbm", [_I] * 6 + [_P] * 6),
+    # train-mode BatchNorm: kind (0 bf16, 1 float32, 2 float64), rows, C,
+    # then as `csrc/batch_norm.cu` lists them
+    "tak_bn_stats": ("batch_norm", [_I, _L, _I, _I] + [_P] * 3),
+    "tak_bn_grad_sums": ("batch_norm", [_I, _L, _I, _I] + [_P] * 5),
+    "tak_bn_finalize": ("batch_norm", [_I, _I, _I, _D] + [_P] * 7),
+    "tak_bn_normalize": ("batch_norm", [_I, _L, _I, _I] + [_P] * 5),
+    "tak_bn_grad_input": ("batch_norm", [_I, _L, _I, _I, _D] + [_P] * 7),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

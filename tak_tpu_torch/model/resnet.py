@@ -37,9 +37,7 @@ from ..sizes import (
     legacy_action_space,
     move_channels,
 )
-
-BN_EPS = 1e-5        # flax nn.BatchNorm default
-BN_MOMENTUM = 0.99   # flax's: running = 0.99 * running + 0.01 * batch
+from .batch_norm import BN_EPS, batch_norm_train
 
 
 @dataclass(frozen=True)
@@ -72,6 +70,10 @@ class BatchNorm(nn.Module):
     `running = 0.99 * running + 0.01 * batch` and store that biased
     variance.  Both modes normalise in float32, (x - mean) *
     (rsqrt(var + eps) * scale) + bias, and return the input's dtype.
+    Train mode is one autograd Function with its backward written out
+    (`batch_norm.batch_norm_train`): the `tak_bn_*` CUDA kernels on the
+    card, on channels-last input (`Network._train_model` lays the model
+    out so), torch ops on the CPU.
     Parameter and buffer names are `nn.BatchNorm2d`'s, so state_dicts keep
     their keys (`num_batches_tracked` is kept, not counted).
 
@@ -80,8 +82,8 @@ class BatchNorm(nn.Module):
     does for the JAX package's sharded step: every rank holds an equal
     block of rows (`shard_rows`), so E[x] and E[x^2] over the batch are
     the sums over the ranks of their own means divided by W, formed by
-    one differentiable all-reduce; at W = 1 that is the identity, bit for
-    bit.  The running statistics then agree on every rank."""
+    one all-reduce, and the backward's gradient sums by another; at W = 1
+    both are skipped.  The running statistics then agree on every rank."""
 
     mesh = None
 
@@ -95,25 +97,13 @@ class BatchNorm(nn.Module):
                              torch.zeros((), dtype=torch.int64))
 
     def forward(self, x):
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
-            mean = xf.mean((0, 2, 3))
-            ex2 = (xf * xf).mean((0, 2, 3))
-            if self.mesh is not None:
-                from ..parallel.mesh import all_reduce_sum
-
-                mean, ex2 = all_reduce_sum(
-                    self.mesh, torch.stack([mean, ex2]) / self.mesh.world)
-            var = torch.clamp(ex2 - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.running_mean.mul_(BN_MOMENTUM).add_(
-                    (1 - BN_MOMENTUM) * mean)
-                self.running_var.mul_(BN_MOMENTUM).add_(
-                    (1 - BN_MOMENTUM) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + BN_EPS) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None]
+            return batch_norm_train(x, self.weight, self.bias,
+                                    self.running_mean, self.running_var,
+                                    self.mesh)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+        y = (xf - self.running_mean[:, None, None]) * mul[:, None, None]
         return (y + self.bias[:, None, None]).to(x.dtype)
 
 

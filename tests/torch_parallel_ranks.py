@@ -196,3 +196,51 @@ def rank_main(rank, out_dir):
     out["legal_mask"] = masks
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
+
+
+# the BatchNorm Function over the ranks (`tests/test_torch_batch_norm.py`):
+# a float64 batch of BN_SHAPE, rows split over the ranks along N
+BN_SHAPE = (6, 16, 3, 3)
+
+
+def bn_inputs():
+    """(x, weight, bias, running_mean, running_var, dy) of the whole batch,
+    seeded; a constant channel (3) among them."""
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.randn(BN_SHAPE, generator=g, dtype=torch.float64) * 2 + 0.5
+    x[:, 3] = 0.7
+    C = BN_SHAPE[1]
+    weight = torch.rand(C, generator=g) + 0.5
+    bias = torch.randn(C, generator=g)
+    running = (torch.randn(C, generator=g), torch.rand(C, generator=g) + 0.5)
+    dy = torch.randn(BN_SHAPE, generator=g, dtype=torch.float64)
+    return x, weight, bias, *running, dy
+
+
+def bn_run(x, weight, bias, running_mean, running_var, dy, mesh=None):
+    """y, the gradients of x, weight and bias, and the running statistics
+    after one train-mode forward and backward of the plain Function."""
+    from tak_tpu_torch.model.batch_norm import BatchNormPlain
+
+    x = x.clone().requires_grad_()
+    weight = weight.clone().requires_grad_()
+    bias = bias.clone().requires_grad_()
+    running_mean, running_var = running_mean.clone(), running_var.clone()
+    y = BatchNormPlain.apply(x, weight, bias, running_mean, running_var, mesh)
+    y.backward(dy)
+    return {"y": y.detach(), "dx": x.grad, "dweight": weight.grad,
+            "dbias": bias.grad, "running_mean": running_mean,
+            "running_var": running_var}
+
+
+def bn_rank_main(rank, out_dir):
+    """This rank's rows of `bn_inputs` through the plain Function with the
+    mesh; results to `out_dir/bn_rank<r>.pt`."""
+    from tak_tpu_torch.parallel.mesh import make_mesh, shard_rows
+
+    torch.set_num_threads(1)
+    mesh = make_mesh(device="cpu")
+    x, weight, bias, rm, rv, dy = bn_inputs()
+    out = bn_run(shard_rows(mesh, x), weight, bias, rm, rv,
+                 shard_rows(mesh, dy), mesh)
+    torch.save(out, os.path.join(out_dir, f"bn_rank{rank}.pt"))
