@@ -209,6 +209,17 @@ Phases, each fatal on failure:
      recycled 1,280-node pool, and #8/#9 (with #1, #5 and the pool-tier
      kernels on the same tree) at profile_hbm's B=32, V=8, K=96, M=20,002
      and at profile_selfplay's default tree (V=16, K=128);
+  6v. the SE net at 8x8 (`lc0se-20x256-8x8`: 20 x 256, 32 SE channels,
+     seeded random weights): `tak_se_epilogue` against its plain version
+     (within one bf16 step, at most 0.1% of outputs off) at a wave's 8,192
+     rows and at odd shapes, timed beside its byte floor; one searched
+     32-game move at the reference search through `SelfPlayActor.run` on
+     the pool tier, the epilogue launched once a block a call; #2, #4, #3
+     and #1 bitwise at 8x8 (A=65,216) on a full recycled pool;
+  6w. with four cards, four NCCL ranks of `Network.train` on the trained
+     Net6 (two steps of 4 chunks of 500): every rank's variables bitwise
+     equal, each leaf's change within the benchmark learner's limits of
+     one process's (skipped, and said so, on fewer cards);
   7. time each kernel (CUDA events; a kernel launched twenty times back to
      back behind a spin long enough for the host to queue them all) and
      its plain version at the main paths' shapes, with the least time the
@@ -230,7 +241,13 @@ Phases, each fatal on failure:
      tier's and the harnesses' included).  The tenth entry, `batch_norm`
      (`csrc/batch_norm.cu`), replaces no TPU kernel (`replaces` null):
      one forward and backward at a Net6 chunk's shape (`other_shapes`
-     splits them), its launches those of 6e's two steps.
+     splits them), its launches those of 6e's two steps.  The eleventh,
+     `squeeze_excite` (`csrc/squeeze_excite.cu`), replaces none either:
+     6v's wave, and the pool-tier kernels at 8x8 under `other_shapes`.
+
+`--se8` runs the build, 6v and 6w only, and prints the eleventh entry
+and a `{"se8_ok": true, ...}` line: a pass of those phases alone, never
+the whole smoke's `ok`.
 
 `--profile` adds, before the last two lines, where one self-play move's
 search (with `fused_leaf_legal` off and on), 200 Player waves, one Net6
@@ -4236,6 +4253,298 @@ def profiling_phase(engine, eval_fn, params, dev, card, rng):
     return launches, summary, shapes
 
 
+# ---------------------------------------------------------------------------
+# The SE-ResNet at 8x8 (`NetConfig.se_channels`, `csrc/squeeze_excite.cu`;
+# the benchmark's `lc0se-20x256-8x8`) and the data-parallel learner over
+# four cards.
+# ---------------------------------------------------------------------------
+
+SE_N = 8
+SE_FILTERS, SE_BLOCKS, SE_CHANNELS = 256, 20, 32
+SE_POOL_PLIES = 20             # random plies before the 8x8 pool-tier check
+DP_WORLD = 4
+DP_EXAMPLES = 4_000            # 8 chunks of 500: two steps of 4 chunks
+
+
+def se_kernel_phase(dev, card):
+    """6v: `tak_se_epilogue` against its plain version (torch ops on the
+    card, the same float32 arithmetic in another summation order) at a
+    wave's shape (8,192 rows, 8x8 x 256, 32 SE channels) and at odd ones
+    (1 and 33 rows; 6x6 x 128 with 16 SE channels, a row that leaves
+    threads idle): every output within one bf16 step after a float32
+    slack of 2^-14 of its terms |sigmoid(γ) y| + |β| + |x| (`bf16_steps`:
+    where they cancel to near 0, the two gates' last bits move the sum by
+    many steps of its own small magnitude), at most 0.1% of them off.
+    Then timed (`launch_ms`) beside the plain version and the
+    byte floor (3 x 2 B x 64 x 256 a row at 3.35 TB/s).  Returns the
+    numbers."""
+    import numpy as np
+    import torch
+
+    from tak_tpu_torch.model.squeeze_excite import (
+        se_epilogue_kernel,
+        se_epilogue_plain,
+    )
+
+    rng = np.random.default_rng(SEED + 6)
+
+    def inputs(rows, n, C, S):
+        def t(shape, scale=1.0):
+            return torch.as_tensor(scale * rng.standard_normal(shape),
+                                   dtype=torch.float32, device=dev)
+
+        y = t((rows, C, n, n)).to(torch.bfloat16)
+        x = torch.relu(t((rows, C, n, n))).to(torch.bfloat16)
+        y = y.contiguous(memory_format=torch.channels_last)
+        x = x.contiguous(memory_format=torch.channels_last)
+        return (y, x, t((S, C), C ** -0.5), t((S,), 0.1),
+                t((2 * C, S), S ** -0.5), t((2 * C,), 0.1))
+
+    out = {}
+    for rows, n, C, S in ((ROWS, SE_N, SE_FILTERS, SE_CHANNELS),
+                          (1, SE_N, SE_FILTERS, SE_CHANNELS),
+                          (33, SE_N, SE_FILTERS, SE_CHANNELS),
+                          (40, 6, 128, 16)):
+        args = inputs(rows, n, C, S)
+        got = se_epilogue_kernel(*args)
+        want = se_epilogue_plain(*args)
+        y, x, w1, b1, w2, b2 = args
+        yf = y.float()
+        e = torch.relu(yf.mean((2, 3)) @ w1.t() + b1) @ w2.t() + b2
+        terms = (torch.sigmoid(e[:, :C])[:, :, None, None] * yf.abs()
+                 + e[:, C:].abs()[:, :, None, None] + x.float().abs())
+        sync()
+        steps = bf16_steps(got, want, terms)
+        share = float((got != want).float().mean())
+        worst = float(steps.max())
+        if worst > 1.0 or share > 1e-3:
+            fail(f"6v tak_se_epilogue at {rows} rows, {n}x{n} x {C}, S={S}: "
+                 f"{share:.2%} of outputs differ, at most {worst:.2f} bf16 "
+                 "steps")
+        out[(rows, n, C, S)] = (share, worst)
+    args = inputs(ROWS, SE_N, SE_FILTERS, SE_CHANNELS)
+    ms = launch_ms(lambda: se_epilogue_kernel(*args))
+    plain = cuda_ms(lambda _: se_epilogue_plain(*args), 3)
+    bound_ms = 1e3 * ROWS * 3 * 2 * SE_N ** 2 * SE_FILTERS / HBM_BYTES_PER_S
+    share, worst = out[(ROWS, SE_N, SE_FILTERS, SE_CHANNELS)]
+    log(f"6v check tak_se_epilogue against its plain version: {ROWS} rows "
+        f"{SE_N}x{SE_N} x {SE_FILTERS}, S={SE_CHANNELS}: {share:.4%} of "
+        f"outputs differ, at most {worst:.2f} bf16 steps; also 1, 33 rows and "
+        f"6x6 x 128, S=16 ({', '.join(f'{v[0]:.4%}' for v in out.values())})"
+        f"; time {ms:.4f} ms, plain {plain:.3f} ms, bound {bound_ms:.4f} ms "
+        f"(bytes; {100 * bound_ms / ms:.1f}% of it), on {card}")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "share_differing": share, "max_bf16_steps": worst}
+
+
+def se8_phase(dev, card):
+    """6v: the SE net of `lc0se-20x256-8x8` (seeded random weights) on the
+    self-play path: one searched move of 32 games at the reference search
+    (10,240 sims, wave 256, K=32, a recycled 1,280-node pool) through
+    `SelfPlayActor.run` on the pool tier, every network call launching
+    `tak_se_epilogue` once a block; then #2, #4, #3 and #1 bitwise against
+    their plain versions at 8x8 (A=65,216) on a tree of 32 random
+    mid-game roots grown until the pool is full, timed beside their bound
+    and chain floor.  Returns (launches, the kernels' times, numbers)."""
+    import numpy as np
+    import torch
+
+    from tak_tpu_torch.engine.core import get_engine
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.mcts.search import MCTS
+    from tak_tpu_torch.mcts.tree_kernels import Pending
+    from tak_tpu_torch.model.network import Network
+    from tak_tpu_torch.model.resnet import NetConfig
+
+    engine = get_engine(SE_N)
+    net = Network(engine, NetConfig(n=SE_N, filters=SE_FILTERS,
+                                    blocks=SE_BLOCKS,
+                                    se_channels=SE_CHANNELS), device=dev)
+    params = {k: v.to(dev) for k, v in net.init_variables(SEED).items()}
+    eval_fn = net.policy_eval_states
+    torch.cuda.reset_peak_memory_stats(dev)
+    kb.reset_launches()
+    actor = make_actor(engine, eval_fn, dev, 1)
+    if actor.mcts.tier != "pool":
+        fail(f"6v: the 8x8 search takes the {actor.mcts.tier} tier")
+    sync()
+    t0 = time.perf_counter()
+    examples = actor.run(params, seed=SEED, log=lambda *a, **k: None)
+    sync()
+    move_s = time.perf_counter() - t0
+    launches = dict(kb.LAUNCHES)
+    se = launches.get("tak_se_epilogue", 0)
+    if se == 0 or se % SE_BLOCKS:
+        fail(f"6v: tak_se_epilogue launched {se} times, not a multiple of "
+             f"{SE_BLOCKS} blocks")
+    for name in POOL_TIER:
+        if launches.get(name, 0) <= 0:
+            fail(f"6v: kernel {name} was not launched at 8x8")
+    if len(examples) != GAMES or any(int(e.visits.sum()) != SIMS
+                                     for e in examples):
+        fail(f"6v: {len(examples)} examples, visits "
+             f"{sorted({int(e.visits.sum()) for e in examples})}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"6v one searched 8x8 move of {GAMES} games with the SE net "
+        f"({SE_BLOCKS} x {SE_FILTERS}, SE {SE_CHANNELS}; set-up and cuDNN's "
+        f"autotuning included) in {move_s:.2f} s, {GAMES * SIMS / move_s:,.0f}"
+        f" sims/s, peak memory {peak / 1e9:.2f} GB, launches {launches}, on "
+        f"{card}")
+
+    rng = np.random.default_rng(SEED + 8)
+    roots = playout_states(engine, GAMES, SE_POOL_PLIES, rng, dev)
+    mcts = MCTS(engine, eval_fn, actor.search_config)
+    tree = mcts.prepare_root(params, mcts.init_batch(roots))
+    M = mcts.config.max_nodes
+    pending, waves = Pending.zeros(GAMES, WAVE, K, dev), 0
+    while waves < 12 and not (waves >= 2
+                              and bool((tree.next_free == M).all())):
+        pending = mcts._wave_pipelined(params, tree, pending)
+        waves += 1
+    sync()
+    if not bool((tree.next_free == M).all()):
+        fail(f"6v: the 8x8 pool is not full after {waves} waves")
+    label = (f"8x8 SE self-play shape, B={GAMES} K={K} M={M} V={WAVE} "
+             f"A={engine.num_actions}, {waves} waves")
+    times, floors, _ = check_pool_at("6v", mcts, params, tree, pending, label,
+                                     card)
+    return launches, (label, times, floors), {"move_s": move_s,
+                                              "peak_bytes": peak}
+
+
+def dp4_rank(rank, out_path):
+    """One of DP_WORLD ranks over NCCL, on card `rank`: `Network.train` of
+    the trained Net6 on DP_EXAMPLES seeded examples (two steps of 4
+    chunks of 500) with the mesh; every rank must end with the same
+    variables bit for bit.  Rank 0 also trains alone (no mesh) and
+    compares the change of every leaf: the same step's math, summed in
+    another order."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tak_tpu_torch.engine.core import get_engine
+    from tak_tpu_torch.model.network import CHUNK_SIZE, Network
+    from tak_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", rank)
+    mesh = make_mesh(device=dev)
+    if (mesh.backend, mesh.world) != ("nccl", DP_WORLD):
+        fail(f"6w: mesh {mesh.backend} x {mesh.world}")
+    engine = get_engine(N)
+    net = Network(engine, device=dev)
+    variables = {k: v.to(dev) for k, v in net.load(NET6_WEIGHTS).items()}
+    examples = seeded_examples(engine, DP_EXAMPLES,
+                               np.random.default_rng(1), dev)
+
+    def train(m):
+        sync()
+        t0 = time.perf_counter()
+        new = net.train(variables, examples, rng=np.random.default_rng(2),
+                        chunk_size=CHUNK_SIZE, chunks_in_step=4,
+                        log=lambda *_: None, mesh=m)
+        sync()
+        return new, time.perf_counter() - t0
+
+    train(mesh)                                    # cuDNN's autotuning
+    sharded, t_mesh = train(mesh)
+    digest = torch.tensor([float(sum(v.double().sum() for v in
+                                     sharded.values()))], device=dev)
+    every = [torch.zeros_like(digest) for _ in range(DP_WORLD)]
+    dist.all_gather(every, digest)
+    if len({float(d) for d in every}) != 1:
+        fail(f"6w: the ranks' variables differ: {[float(d) for d in every]}")
+    if rank:
+        return
+    train(None)
+    single, t_one = train(None)
+    gaps = []
+    for k, v in single.items():
+        if not v.is_floating_point() or "running" in k:
+            continue
+        want = float((v - variables[k]).norm())
+        got = float((sharded[k] - variables[k]).norm())
+        gaps.append((abs(got - want), want))
+    median = float(np.median([w for _, w in gaps]))
+    rel = [g / max(w, median) for g, w in gaps]
+    with open(out_path, "w") as f:
+        json.dump({"train_s": t_one, "train_mesh_s": t_mesh,
+                   "worst": max(rel), "median": float(np.median(rel))}, f)
+
+
+def dp4_phase(card):
+    """6w: `dp4_rank` on DP_WORLD cards (skipped, and said so, with fewer):
+    the change of every leaf within the benchmark learner's limits of the
+    one-process step (worst 0.2, median 0.0042 of the larger of its norm
+    and the median leaf's).  Returns the numbers, or None."""
+    import torch
+
+    from tak_tpu_torch.parallel.mesh import spawn_local
+
+    cards = torch.cuda.device_count()
+    if cards < DP_WORLD:
+        log(f"6w skipped: {cards} CUDA device(s), the four-card NCCL step "
+            f"needs {DP_WORLD}")
+        return None
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rank0.json")
+        t0 = time.perf_counter()
+        try:
+            spawn_local(dp4_rank, DP_WORLD, (path,), backend="nccl",
+                        timeout_s=600)
+        except Exception as e:  # a rank's failure, surfaced here
+            fail(f"6w: {DP_WORLD} NCCL ranks: {e}")
+        wall = time.perf_counter() - t0
+        with open(path) as f:
+            out = json.load(f)
+    if out["worst"] > 0.2 or out["median"] > 0.0042:
+        fail(f"6w: the {DP_WORLD}-rank step against one process: {out}")
+    log(f"6w {DP_WORLD} NCCL ranks, one a card: Network.train of the trained "
+        f"Net6 on {DP_EXAMPLES} examples (two steps of 4 chunks of 500) "
+        f"{1e3 * out['train_mesh_s']:.1f} ms, one process "
+        f"{1e3 * out['train_s']:.1f} ms; every rank's variables bitwise equal;"
+        f" the change of each leaf against one process's: worst gap "
+        f"{out['worst']:.2e}, median {out['median']:.2e} ({wall:.1f} s with "
+        f"process start), on {card}")
+    return out
+
+
+def se_entry(se_times, se_launches, se_shape) -> dict:
+    """The `{"kernels": [...]}` entry of the SE epilogue (no TPU kernel),
+    and the pool-tier kernels' times at the 8x8 shape."""
+    label, times, floors = se_shape
+    return {
+        "name": "squeeze_excite", "route": "cuda",
+        "source": "tak_tpu_torch/csrc/squeeze_excite.cu", "replaces": None,
+        "launches": se_launches.get("tak_se_epilogue", 0),
+        "launches_by_path": {"selfplay_se8": se_launches.get(
+            "tak_se_epilogue", 0)},
+        "max_bf16_steps": se_times["max_bf16_steps"],
+        "share_differing": se_times["share_differing"],
+        "ms": se_times["ms"], "plain_ms": se_times["plain_ms"],
+        "bound_ms": se_times["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "other_shapes": {label: {name: dict(zip(
+            ("ms", "plain_ms", "bound_ms", "bound_by"), t),
+            **({"chain_floor_ms": floors[name]} if name in floors else {}))
+            for name, t in times.items()}},
+    }
+
+
+def se_phases(dev, card) -> tuple:
+    """6v and 6w: (the SE epilogue's `{"kernels"}` entry, a summary)."""
+    se_times = se_kernel_phase(dev, card)
+    se_launches, se_shape, se_out = se8_phase(dev, card)
+    dp = dp4_phase(card)
+    line = (f"8x8 SE net: one 32-game move {se_out['move_s']:.2f} s, peak "
+            f"{se_out['peak_bytes'] / 1e9:.2f} GB; tak_se_epilogue "
+            f"{se_times['ms']:.4f} ms at {ROWS} rows (bound "
+            f"{se_times['bound_ms']:.4f}); four cards: "
+            + ("skipped" if dp is None else
+               f"median leaf gap {dp['median']:.2e}"))
+    return se_entry(se_times, se_launches, se_shape), line
+
+
 def make_actor(engine, eval_fn, dev, moves, mesh=None, **search_options):
     from tak_tpu_torch.mcts.search import SearchConfig
     from tak_tpu_torch.selfplay import SelfPlayActor, SelfPlayConfig
@@ -4247,7 +4556,7 @@ def make_actor(engine, eval_fn, dev, moves, mesh=None, **search_options):
     return SelfPlayActor(engine, eval_fn, cfg, device=dev, mesh=mesh)
 
 
-def main(do_profile: bool = False):
+def main(do_profile: bool = False, only_se8: bool = False):
     try:
         import torch
     except ImportError:
@@ -4293,6 +4602,14 @@ def main(do_profile: bool = False):
                 log(f"  ptxas {name}: {line.strip()}")
     for name in kb.SOURCES:
         kb.library(name)
+    if only_se8:
+        se_kernel, se_line = se_phases(dev, card)
+        log(f"summary on {card}: build {t_build:.1f} s; {se_line}")
+        print(json.dumps({"kernels": [se_kernel]}), flush=True)
+        print(json.dumps({"se8_ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     engine = get_engine(N)
     rng = np.random.default_rng(SEED)
@@ -4519,6 +4836,9 @@ def main(do_profile: bool = False):
     slice13_line = "harnesses: " + "; ".join(
         f"{key} {wall:.1f} s ({lines[-1].strip()})"
         for key, (wall, lines) in u_summary.items())
+
+    # ---- 6v-6w. the SE net at 8x8, the four-card learner -------------------
+    se_kernel, se_line = se_phases(dev, card)
     slice12_line = (
         f"bench program: MCTS tier {bm_out['bench_mcts_rate']:,} sims/s, env "
         f"tier {bm_out['env_rate']:,} env steps/s, self-play tier "
@@ -4764,7 +5084,9 @@ def main(do_profile: bool = False):
         + "; ".join(p_lines)
         + f"; Player: {p_rate:,.0f} rollouts/s over {P_MOVES} moves; "
         + train_line + "; " + slice9_line + "; " + slice10_line + "; "
-        + slice11_line + "; " + slice12_line + "; " + slice13_line)
+        + slice11_line + "; " + slice12_line + "; " + slice13_line + "; "
+        + se_line)
+    kernels.append(se_kernel)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4779,4 +5101,5 @@ def sync():
 
 
 if __name__ == "__main__":
-    main(do_profile="--profile" in sys.argv[1:])
+    main(do_profile="--profile" in sys.argv[1:],
+         only_se8="--se8" in sys.argv[1:])

@@ -72,6 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--filters", type=int, default=128)
     p.add_argument("--blocks", type=int, default=None,
                    help="res blocks (default: 16 for 6x6+, else 8)")
+    p.add_argument("--se-channels", type=int, default=0,
+                   help="squeeze-and-excitation channels of every residual "
+                        "block (Lc0's SE unit; 0: plain blocks)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA device")
     p.add_argument("--seed", type=int, default=0)
@@ -112,7 +115,9 @@ def main(argv=None):
     engine = get_engine(args.size)
     blocks = args.blocks or (16 if args.size >= 6 else 8)
     network = Network(engine, NetConfig(n=args.size, filters=args.filters,
-                                        blocks=blocks), device=device)
+                                        blocks=blocks,
+                                        se_channels=args.se_channels),
+                      device=device)
 
     start_generation = 0
     if args.resume:

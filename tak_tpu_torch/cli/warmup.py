@@ -38,6 +38,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk-size", type=int, default=500)
     p.add_argument("--filters", type=int, default=128)
     p.add_argument("--blocks", type=int, default=None)
+    p.add_argument("--se-channels", type=int, default=0,
+                   help="squeeze-and-excitation channels of every residual "
+                        "block (Lc0's SE unit; 0: plain blocks)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA device")
     return p
@@ -61,7 +64,9 @@ def main(argv=None):
         16 if args.size >= 6 else 8
     )
     network = Network(engine, NetConfig(n=args.size, filters=args.filters,
-                                        blocks=blocks), device=device)
+                                        blocks=blocks,
+                                        se_channels=args.se_channels),
+                      device=device)
     recycle = args.recycle
     if recycle is None:  # same auto rule as cli/train.py
         recycle = args.rollouts * 2 + 2 > RECYCLE_POOL

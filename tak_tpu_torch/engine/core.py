@@ -25,6 +25,10 @@ from ..types import CAP, FLAT, ONGOING, WALL, GameState, result_winner
 from ..utils.device import resolve_device
 from . import env_rollout, fused_env, legal_bits
 
+# probe rows `Engine.wins_in_one` steps at once: one block at 6x6's
+# 32 x 9,036, two at 8x8's 32 x 65,216 (2.1 GB of stacks a block)
+WIN_SCAN_ROWS = 1 << 20
+
 
 class Engine:
     """Rules engine for one board size.  Construct once; methods are pure."""
@@ -203,7 +207,19 @@ class Engine:
         """Bool [B, A]: legal actions that win on the spot for the mover.
 
         Steps all B*A (game, action) probe rows through the fused step;
-        illegal pairs ride its freeze path (`tak_tpu` core.py:596-695)."""
+        illegal pairs ride its freeze path (`tak_tpu` core.py:596-695).
+        The games go in blocks of at most WIN_SCAN_ROWS probe rows (at
+        least one game a block); a game's rows never depend on another's,
+        so the result is the unsplit one bit for bit."""
+        A = self.num_actions
+        B = state.ply.shape[0]
+        per = max(1, WIN_SCAN_ROWS // A)
+        if B > per:
+            return torch.cat([self._wins_in_one(state[i:i + per])
+                              for i in range(0, B, per)])
+        return self._wins_in_one(state)
+
+    def _wins_in_one(self, state: GameState) -> torch.Tensor:
         A = self.num_actions
         B = state.ply.shape[0]
         legal = self.legal_mask(state)

@@ -16,8 +16,9 @@ float32 PUCT arithmetic bit for bit, so `-fmad=false` also keeps the
 compiler from contracting a multiply and an add into one rounding.
 
 Launch counters: each wrapper adds one to `LAUNCHES[<kernel name>]` where
-it launches its kernel, and nowhere else (the BatchNorm kernels count
-under their C entry points' names, `tak_bn_*`).
+it launches its kernel, and nowhere else (the BatchNorm kernels and the
+SE epilogue count under their C entry points' names, `tak_bn_*` and
+`tak_se_epilogue`).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "tak_tpu_torch"
 SOURCES = ("fused_step", "fused_step_legal", "env_rollout", "tree_wave",
-           "tree_wave_hbm", "batch_norm")
+           "tree_wave_hbm", "batch_norm", "squeeze_excite")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -83,6 +84,9 @@ SIGNATURES = {
     "tak_bn_finalize": ("batch_norm", [_I, _I, _I, _D] + [_P] * 7),
     "tak_bn_normalize": ("batch_norm", [_I, _L, _I, _I] + [_P] * 5),
     "tak_bn_grad_input": ("batch_norm", [_I, _L, _I, _I, _D] + [_P] * 7),
+    # the SE epilogue: rows, H*W, C, S, SMs, y, x, w1, b1, w2, b2, out,
+    # stream
+    "tak_se_epilogue": ("squeeze_excite", [_L] + [_I] * 4 + [_P] * 8),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -19,7 +19,10 @@ named as there (`SearchConfig.backend`, `MCTS.tier`):
 
 "auto" follows the reference's rule (search.py:254-259): the pool tier
 when the tree passes `fits_in_vmem`, else the large-tree tier when not
-recycling and the pool is within `MAX_HBM_NODES`, else "xla".
+recycling and the pool is within `MAX_HBM_NODES`, else "xla"; with one
+departure: a recycled pool that the pool tier's kernels take
+(`pool_kernels_take`) runs there whatever the TPU's VMEM budget says
+(8x8's 65,216 root actions, where the reference takes "xla").
 `gumbel_m > 0` always takes "xla".  A tier is chosen from the
 configuration alone, never because a kernel failed.  Search semantics
 follow `alpha-tak/src/search/mcts.rs` as the JAX package does:
@@ -72,6 +75,7 @@ from .tree_kernels import (
     backup_descend_wave,
     expand_backup_wave,
     fits_in_vmem,
+    pool_kernels_take,
 )
 from .tree_kernels_hbm import (
     descend_wave_hbm,
@@ -128,6 +132,11 @@ class SearchConfig:
         return self.node_budget or (self.num_waves * self.wave_size + 2)
 
 
+# int64 keys the exact top-K forms at once: one block of rows at 6x6's
+# 8,192 x 9,036, two at 8x8's 8,192 x 65,216 (4.3 GB of keys a block)
+TOPK_KEYS = 1 << 28
+
+
 def masked_topk(policy, legal, k: int, impl: str = "exact"):
     """(vals, action_ids) of the top-k legal policy entries per row.
 
@@ -146,7 +155,18 @@ def masked_topk(policy, legal, k: int, impl: str = "exact"):
     (2^-17 at 6x6) at the K boundary, ties between equal quanta go to the
     HIGHER id, and (packedq) priors carry an absolute error below 2^-17.
     Pad slots return vals = -1, id 0.  Same values and ids as the JAX
-    package's function of the same name."""
+    package's function of the same name.
+
+    "exact" takes the rows in blocks of at most TOPK_KEYS keys (at least
+    one row a block); rows are independent, so the result is the unsplit
+    one bit for bit."""
+    if impl == "exact" and policy.dim() == 2:
+        per = max(1, TOPK_KEYS // policy.shape[-1])
+        if policy.shape[0] > per:
+            parts = [masked_topk(policy[i:i + per], legal[i:i + per], k)
+                     for i in range(0, policy.shape[0], per)]
+            return (torch.cat([v for v, _ in parts]),
+                    torch.cat([a for _, a in parts]))
     if impl == "exact":
         masked = torch.where(legal, policy.float(),
                              torch.full_like(policy, -1.0,
@@ -316,6 +336,13 @@ class MCTS:
             return "hbm"
         if fits_in_vmem(cfg.max_nodes, cfg.max_children,
                         self.engine.num_actions):
+            return "pool"
+        # the budget is the TPU's VMEM; on the card the pool tier takes any
+        # recycled pool its kernels take, whatever the root's width (8x8's
+        # 65,216 actions: the legal ones are staged in shared memory as
+        # far as it holds them)
+        if pool_kernels_take(cfg.max_nodes, cfg.max_children, cfg.wave_size,
+                             cfg.recycle):
             return "pool"
         if not cfg.recycle and fits_hbm(cfg.max_nodes):
             return "hbm"

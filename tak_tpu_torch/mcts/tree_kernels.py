@@ -101,6 +101,14 @@ def fits_in_vmem(max_nodes: int, k: int, num_actions: int) -> bool:
     return tree_vmem_bytes(max_nodes, k, num_actions) <= VMEM_BUDGET_BYTES
 
 
+def pool_kernels_take(max_nodes: int, k: int, wave: int,
+                      recycle: bool) -> bool:
+    """Whether the pool tier's CUDA kernels take a recycled pool of this
+    shape (`_dims`' limits; the root's actions have none)."""
+    return (recycle and max_nodes <= MAX_RECYCLE_NODES and k <= 1024
+            and 1 <= wave <= MAX_WAVE and max_nodes * k < 2 ** 31)
+
+
 def _last_argmax(scores):
     """Index of the max along the last axis; ties -> LAST index."""
     K = scores.shape[-1]

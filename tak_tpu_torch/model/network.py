@@ -13,7 +13,9 @@
     optimizer is rebuilt per call, as upstream does.
   * `variables_from_numpy` / `variables_to_numpy` — flax's nested numpy
     `{params, batch_stats}` <-> the port's unfolded `state_dict`, for
-    either policy head.
+    either policy head, with the SE blocks' dense layers (flax
+    `ResBlock_i/SqueezeExcite_0/Dense_0`, `Dense_1`) where the net has
+    them.
   * the dense (legacy Net5) head: `policy_eval` scatters its softmax over
     the legacy move list into the channel-scheme action space the search
     reads; training targets and the D4 expansion use the legacy list.
@@ -44,7 +46,7 @@ from ..sizes import input_channels, move_channels
 from ..types import GameState
 from ..utils.device import resolve_device
 from ..utils.profiling import count, span
-from .resnet import BN_EPS, BatchNorm, NetConfig, TakResNet
+from .resnet import BN_EPS, BatchNorm, NetConfig, SqueezeExcite, TakResNet
 
 LEARNING_RATE = 1e-4
 WEIGHT_DECAY = 1e-4
@@ -61,6 +63,15 @@ def _conv_names(config: NetConfig):
                         (f"ResBlock_{i}", f"Conv_{j}"),
                         (f"ResBlock_{i}", f"BatchNorm_{j}")))
     return out
+
+
+def _se_names(config: NetConfig):
+    """(torch prefix, flax path) of every SE dense layer; none without SE."""
+    if not config.se_channels:
+        return []
+    return [(f"blocks.{i}.se.dense{j}",
+             (f"ResBlock_{i}", "SqueezeExcite_0", f"Dense_{j}"))
+            for i in range(config.blocks) for j in range(2)]
 
 
 def _dense_names(config: NetConfig):
@@ -106,6 +117,12 @@ def variables_from_numpy(params, batch_stats, config: NetConfig) -> dict:
         w = t(p["kernel"]).reshape(n, n, f, out).permute(3, 2, 0, 1)
         return w.reshape(out, f * n * n).contiguous(), t(p["bias"])
 
+    for name, path in _se_names(config):
+        p = get(params, path)
+        # flax's Dense kernel is [in, out]
+        sd[f"{name}.weight"] = t(p["kernel"]).t().contiguous()
+        sd[f"{name}.bias"] = t(p["bias"])
+
     if pol_name is None:
         pol = params["Conv_1"]
         sd["policy.weight"] = t(pol["kernel"]).permute(3, 2, 0, 1).contiguous()
@@ -117,12 +134,15 @@ def variables_from_numpy(params, batch_stats, config: NetConfig) -> dict:
 
 
 def config_of(variables: dict) -> NetConfig:
-    """The widths of a `state_dict` (board size, filters, blocks, head)."""
+    """The widths of a `state_dict` (board size, filters, blocks, head, SE
+    channels)."""
     f = variables["stem.weight"].shape[0]
     blocks = len({k.split(".")[1] for k in variables if k.startswith("blocks.")})
     n = math.isqrt(variables["value.weight"].shape[1] // f)
     head = "dense" if variables["policy.weight"].dim() == 2 else "conv"
-    return NetConfig(n=n, filters=f, blocks=blocks, policy_head=head)
+    se = variables.get("blocks.0.se.dense0.weight")
+    return NetConfig(n=n, filters=f, blocks=blocks, policy_head=head,
+                     se_channels=0 if se is None else se.shape[0])
 
 
 def variables_to_numpy(variables: dict) -> dict:
@@ -152,6 +172,10 @@ def variables_to_numpy(variables: dict) -> dict:
                             "bias": a(f"{bn}.bias")})
         put(stats, bpath, {"mean": a(f"{bn}.running_mean"),
                            "var": a(f"{bn}.running_var")})
+    for name, path in _se_names(config):
+        put(params, path,
+            {"kernel": np.ascontiguousarray(a(f"{name}.weight").T),
+             "bias": a(f"{name}.bias")})
 
     def dense(key):
         w = a(f"{key}.weight")
@@ -171,7 +195,9 @@ def variables_to_numpy(variables: dict) -> dict:
 
 def init_variables(config: NetConfig, seed: int = 0) -> dict:
     """Random unfolded state_dict from a seeded torch.Generator: conv and
-    linear weights ~ N(0, 1/fan_in), zero biases, identity BatchNorm."""
+    linear weights ~ N(0, 1/fan_in), zero biases, identity BatchNorm (the
+    SE layers drawn after every convolution, so that a net without them
+    draws what it always has)."""
     g = torch.Generator().manual_seed(seed)
     n, f = config.n, config.filters
     sd = {}
@@ -196,12 +222,18 @@ def init_variables(config: NetConfig, seed: int = 0) -> dict:
     sd["policy.bias"] = torch.zeros(sd["policy.weight"].shape[0])
     sd["value.weight"] = weight(1, f * n * n)
     sd["value.bias"] = torch.zeros(1)
+    S = config.se_channels
+    for name, _ in _se_names(config):
+        out, cin = (S, f) if name.endswith("dense0") else (2 * f, S)
+        sd[f"{name}.weight"] = weight(out, cin)
+        sd[f"{name}.bias"] = torch.zeros(out)
     return sd
 
 
 def fold_bn(variables: dict, config: NetConfig) -> dict:
     """Fold BatchNorm running statistics into the conv weights/biases:
-    gamma*(conv+b-mean)/sqrt(var+eps) + beta (`Network._fold_bn`)."""
+    gamma*(conv+b-mean)/sqrt(var+eps) + beta (`Network._fold_bn`); the SE
+    layers and the heads are kept as they are."""
     out = {}
     for conv, bn, _, _ in _conv_names(config):
         s = variables[f"{bn}.weight"] / torch.sqrt(
@@ -210,7 +242,10 @@ def fold_bn(variables: dict, config: NetConfig) -> dict:
         out[f"{conv}.bias"] = ((variables[f"{conv}.bias"]
                                 - variables[f"{bn}.running_mean"]) * s
                                + variables[f"{bn}.bias"])
-    for k in ("policy.weight", "policy.bias", "value.weight", "value.bias"):
+    keep = ["policy.weight", "policy.bias", "value.weight", "value.bias"]
+    for name, _ in _se_names(config):
+        keep += [f"{name}.weight", f"{name}.bias"]
+    for k in keep:
         out[k] = variables[k]
     return out
 
@@ -222,6 +257,9 @@ class Network:
         self.config = config or NetConfig.for_size(engine.n)
         folded = dataclasses.replace(self.config, fold_bn=True)
         self.model = TakResNet(folded).to(self.device, self.config.dtype).eval()
+        for m in self.model.modules():
+            if isinstance(m, SqueezeExcite):
+                m.float()                 # the SE unit's arithmetic is float32
         if self.device.type == "cuda":
             # NHWC planes permute to a channels-last NCHW view for free, and
             # cuDNN's Hopper convolutions run NHWC: no layout copies
@@ -275,6 +313,8 @@ class Network:
         return observe(self.engine, states)
 
     def policy_eval_states(self, variables: dict, states):
+        if self.config.se_channels:
+            count("network.se_rows", states.ply.shape[0] * self.config.blocks)
         with span("network.observe"):
             planes = self.observe_batch(states)
         with span("network.forward"):

@@ -1,7 +1,10 @@
 """ResNet policy/value tower for Tak (counterpart of `tak_tpu/model/resnet.py`).
 
   stem: 3x3 conv (input_channels -> filters) + BN + ReLU
-  body: `blocks` residual blocks (conv-BN-ReLU-conv-BN + skip + ReLU)
+  body: `blocks` residual blocks (conv-BN-ReLU-conv-BN + skip + ReLU), or
+    with `se_channels` > 0 Leela Chess Zero's SE blocks: after the second
+    BN, relu(sigmoid(gamma) * y + beta + x) with (gamma, beta) from two
+    dense layers over the channel means (`model/squeeze_excite.py`)
   policy head:
     * "conv" (Net6-style, net6.rs:56,98-108): 3x3 conv to move_channels(n)
       planes, flattened channel-major to action_space(n) logits
@@ -38,6 +41,7 @@ from ..sizes import (
     move_channels,
 )
 from .batch_norm import BN_EPS, batch_norm_train
+from .squeeze_excite import se_epilogue
 
 
 @dataclass(frozen=True)
@@ -49,6 +53,8 @@ class NetConfig:
     dtype: torch.dtype = torch.bfloat16
     # inference variant: BatchNorm folded into the conv weights/biases
     fold_bn: bool = False
+    # squeeze-and-excitation channels of every residual block (0: none)
+    se_channels: int = 0
 
     @staticmethod
     def for_size(n: int) -> "NetConfig":
@@ -125,17 +131,35 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
+class SqueezeExcite(nn.Module):
+    """Lc0's SE unit (flax `SqueezeExcite_0`): `dense0` C -> S, `dense1`
+    S -> 2C, float32 parameters in every model (`Network` keeps them so in
+    the bf16 inference copy)."""
+
+    def __init__(self, filters: int, channels: int):
+        super().__init__()
+        self.dense0 = nn.Linear(filters, channels)
+        self.dense1 = nn.Linear(channels, 2 * filters)
+
+    def forward(self, y, x):
+        return se_epilogue(y, x, self.dense0.weight, self.dense0.bias,
+                           self.dense1.weight, self.dense1.bias)
+
+
 class ResBlock(nn.Module):
-    def __init__(self, filters: int, fold_bn: bool):
+    def __init__(self, filters: int, fold_bn: bool, se_channels: int = 0):
         super().__init__()
         self.conv0 = Conv(filters, filters)
         self.conv1 = Conv(filters, filters)
         self.bn0 = nn.Identity() if fold_bn else BatchNorm(filters)
         self.bn1 = nn.Identity() if fold_bn else BatchNorm(filters)
+        self.se = SqueezeExcite(filters, se_channels) if se_channels else None
 
     def forward(self, x):
         y = torch.relu(self.bn0(self.conv0(x)))
         y = self.bn1(self.conv1(y))
+        if self.se is not None:
+            return self.se(y, x)
         return torch.relu(y + x)
 
 
@@ -149,7 +173,8 @@ class TakResNet(nn.Module):
         self.stem = Conv(input_channels(n), f)
         self.stem_bn = nn.Identity() if config.fold_bn else BatchNorm(f)
         self.blocks = nn.ModuleList(
-            ResBlock(f, config.fold_bn) for _ in range(config.blocks))
+            ResBlock(f, config.fold_bn, config.se_channels)
+            for _ in range(config.blocks))
         if config.policy_head == "conv":
             self.policy = Conv(f, move_channels(n))
         elif config.policy_head == "dense":

@@ -35,6 +35,7 @@ import torch.distributed as dist
 
 from ..types import GameState
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -145,10 +146,12 @@ def gather_rows(mesh: Mesh | None, x):
 
 
 def _all_reduce(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """Sum of `t` over the ranks (a new tensor on `t`'s device)."""
-    out = t.to(mesh.comm_device, copy=True).contiguous()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
-    return out.to(t.device)
+    """Sum of `t` over the ranks (a new tensor on `t`'s device), inside a
+    `mesh.all_reduce` span."""
+    with span("mesh.all_reduce"):
+        out = t.to(mesh.comm_device, copy=True).contiguous()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.group)
+        return out.to(t.device)
 
 
 class _AllReduceSum(torch.autograd.Function):

@@ -2,7 +2,9 @@
 
 `span(name)` and `count(name, n)` mark the program's stages where the
 work happens: the self-play move loop, the search's waves, the network's
-evaluation and `Network.train`'s chunks and steps.  They record only
+evaluation (and `network.se_rows`, its rows times its SE blocks),
+`Network.train`'s chunks and steps, and the data-parallel all-reduces
+(`mesh.all_reduce`).  They record only
 while a `torch.profiler` records on the calling thread; otherwise a span
 is one flag test that returns a shared no-op context, and a count does
 nothing.  While recording:
