@@ -220,6 +220,18 @@ Phases, each fatal on failure:
      Net6 (two steps of 4 chunks of 500): every rank's variables bitwise
      equal, each leaf's change within the benchmark learner's limits of
      one process's (skipped, and said so, on fewer cards);
+  6x. (run after 6e) the graphed learner against the eager loop at the
+     reference step, cuDNN held to deterministic algorithms: a fresh
+     Net6 `Network.train` call (each chunk's forward and backward
+     replayed as CUDA graphs) on 6e's 20,000 examples and weights, and
+     the same two steps built from the seams (`_train_model`,
+     `_chunk_arrays`, `_accum_chunk` on the plain module).  Each chunk's
+     loss parts, each step's summed gradients, the running statistics
+     and the returned variables within `graphed_learner_phase`'s
+     tolerances; then two calls back to back on that network against the
+     same calls on two fresh ones.  Logs the captures and replays (the
+     program's counters) and the `tak_bn_*` launches: a capturing call
+     counts its warm-up's, a replaying one six a BatchNorm and chunk;
   7. time each kernel (CUDA events; a kernel launched twenty times back to
      back behind a spin long enough for the host to queue them all) and
      its plain version at the main paths' shapes, with the least time the
@@ -244,6 +256,9 @@ Phases, each fatal on failure:
      splits them), its launches those of 6e's two steps.  The eleventh,
      `squeeze_excite` (`csrc/squeeze_excite.cu`), replaces none either:
      6v's wave, and the pool-tier kernels at 8x8 under `other_shapes`.
+
+`--learner` runs the build, 6c-6e, 6x and 6p only, and prints a
+`{"learner_ok": true, ...}` line, never the whole smoke's `ok`.
 
 `--se8` runs the build, 6v and 6w only, and prints the eleventh entry
 and a `{"se8_ok": true, ...}` line: a pass of those phases alone, never
@@ -1913,6 +1928,266 @@ def learner_net6_phase(dev, card, rng):
         f"{100 * share:.1f}% of the bf16 peak of {BF16_OPS_PER_S / 1e12:.0f} "
         f"TFLOP/s, on {card}")
     return out, net, variables, new, examples
+
+
+def graphed_learner_phase(dev, card, variables, examples):
+    """6x: the graphed learner against the eager loop, at the reference
+    step (the trained Net6, 20 chunks of 500 x 8 rows a step, two steps,
+    one Adam state), cuDNN held to deterministic algorithms so that both
+    sides run the same kernels.  The graphed side is `Network.train` on a
+    fresh network (it captures at its first chunk); the eager side is
+    the same loop built from the seams on another network, its chunks
+    through `_accum_chunk` on the plain module.  Tolerances (those of
+    `card_vs_cpu_phase` in float32, relative errors, a tensor's to its
+    own largest magnitude or norm):
+      * each chunk's loss parts and the running statistics 1e-4;
+      * each step's summed gradients as one vector 2e-3 of their norm,
+        each tensor 1e-2 of its norm; the conv biases that a BatchNorm
+        follows (a gradient of zero up to rounding) absolutely to 1e-3 of
+        the largest gradient of the conv's weight;
+      * the returned parameters' change from the start as one vector
+        2e-3 of its norm; those conv biases' change absolutely to four
+        learning rates (two Adam steps of about one learning rate each,
+        in either direction).
+    Then two calls back to back (10,000 examples each) on the
+    graphed network against the same calls on two fresh networks, to the
+    same limits.  Counts the captures and replays under a CPU profiler,
+    and the `tak_bn_*` launches: the capturing call's include its
+    warm-up's.  Returns a summary."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tak_tpu_torch.engine.core import get_engine
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.model.network import (
+        CHUNK_SIZE,
+        CHUNKS_IN_STEP,
+        LEARNING_RATE,
+        Network,
+    )
+    from tak_tpu_torch.model.resnet import NetConfig
+    from tak_tpu_torch.model.train_graph import WARMUP
+    from tak_tpu_torch.utils import profiling
+
+    engine = get_engine(6)
+    cfg = NetConfig.for_size(6)
+    n_chunks = len(examples) // CHUNK_SIZE
+    bns = 1 + 2 * cfg.blocks
+
+    def bn_led(k):
+        return k.endswith(".bias") and (k.startswith("stem.") or ".conv" in k)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+    def flat(d, keep):
+        return torch.cat([d[k].double().flatten() for k in sorted(d)
+                          if keep(k)])
+
+    def grads_err(got, want):
+        rest = lambda k: not bn_led(k)                       # noqa: E731
+        return {
+            "grads": rel_l2(flat(got, rest), flat(want, rest)),
+            "tensor_l2": max(rel_l2(got[k], want[k]) for k in want
+                             if rest(k)),
+            "bn_biases": max(float((got[k] - want[k]).abs().max()
+                                   / want[k[:-4] + "weight"].abs().max())
+                             for k in want if bn_led(k)),
+        }
+
+    def vars_err(got, want, start):
+        params = [k for k in want if not k.endswith(
+            ("running_mean", "running_var", "num_batches_tracked"))]
+        stats = [k for k in want if k.endswith(("running_mean",
+                                                "running_var"))]
+        got, want, start = ({k: v.double().cpu() for k, v in d.items()}
+                            for d in (got, want, start))
+        change = {k: got[k] - start[k] for k in params}
+        ref = {k: want[k] - start[k] for k in params}
+        keep = lambda k: not bn_led(k)                       # noqa: E731
+        return {
+            "change": rel_l2(flat(change, keep), flat(ref, keep)),
+            "bn_bias_change": max(float((change[k] - ref[k]).abs().max())
+                                  for k in params if bn_led(k)),
+            "stats": max(rel(got[k], want[k]) for k in stats),
+            "bitwise": sum(torch.equal(got[k], want[k]) for k in want),
+            "tensors": len(want),
+        }
+
+    limits = {"loss": 1e-4, "stats": 1e-4, "grads": 2e-3, "tensor_l2": 1e-2,
+              "bn_biases": 1e-3, "change": 2e-3,
+              "bn_bias_change": 4 * LEARNING_RATE}
+
+    def over(err):
+        return {k: v for k, v in err.items() if k in limits and v > limits[k]}
+
+    def graphed_call(net, start, exs, seed):
+        """`net.train`, tapped for each chunk's loss parts (the tensors
+        `_loss` returns, read at the end) and each step's summed
+        gradients."""
+        train_model, loss_fn, make_opt = (net._train_model, net._loss,
+                                          net.make_optimizer)
+        record = {"losses": [], "grads": []}
+
+        def tapped_model(v, mesh=None):
+            record["model"] = train_model(v, mesh)
+            return record["model"]
+
+        def tapped_loss(model, planes, pi, z, world=1):
+            out = loss_fn(model, planes, pi, z, world)
+            record["losses"].append((out[1].detach(), out[2].detach()))
+            return out
+
+        def tapped_opt(params):
+            opt = make_opt(params)
+            step = opt.step
+
+            def tapped_step(*a, **k):
+                record["grads"].append(
+                    {name: p.grad.detach().clone()
+                     for name, p in record["model"].named_parameters()})
+                return step(*a, **k)
+
+            opt.step = tapped_step
+            return opt
+
+        net._train_model, net._loss, net.make_optimizer = (
+            tapped_model, tapped_loss, tapped_opt)
+        try:
+            return net.train(start, exs, rng=np.random.default_rng(seed),
+                             log=lambda *_: None, chunk_size=CHUNK_SIZE,
+                             chunks_in_step=CHUNKS_IN_STEP), record
+        finally:
+            del net._train_model, net._loss, net.make_optimizer
+
+    def eager_call(net, start, exs, seed):
+        """The same call built from the seams, eagerly."""
+        rng = np.random.default_rng(seed)
+        model = net._train_model(start)
+        opt = net.make_optimizer(model.parameters())
+        pre = net._prestack(exs)
+        order = rng.permutation(len(exs))
+        record = {"losses": [], "grads": []}
+        for i in range(len(exs) // CHUNK_SIZE):
+            idx = order[i * CHUNK_SIZE:(i + 1) * CHUNK_SIZE]
+            record["losses"].append(net._accum_chunk(
+                model, *net._chunk_arrays(pre, idx)))
+            if (i + 1) % CHUNKS_IN_STEP == 0:
+                record["grads"].append({k: p.grad.detach().clone()
+                                        for k, p in model.named_parameters()})
+                opt.step()
+                opt.zero_grad(set_to_none=False)
+        return ({k: v.detach().clone() for k, v in model.state_dict().items()},
+                record)
+
+    saved = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        graphed = Network(engine, cfg, device=dev)
+        before = dict(kb.LAUNCHES)
+        profiling.clear()
+        sync()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU]):
+            got, record = graphed_call(graphed, variables, examples, 11)
+            sync()
+        t_graphed = time.perf_counter() - t0
+        counted = profiling.counts()
+        profiling.clear()
+        first = {k: v for k, v in launches_since(before).items()
+                 if k.startswith("tak_bn_")}
+        eager = Network(engine, cfg, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        want, ref = eager_call(eager, variables, examples, 11)
+        sync()
+        t_eager = time.perf_counter() - t0
+        losses = [(float(a), float(b)) for a, b in record["losses"]]
+        want_losses = [(float(a), float(b)) for a, b in ref["losses"]]
+        if len(losses) != n_chunks or len(record["grads"]) != len(
+                ref["grads"]):
+            fail(f"6x: {len(losses)} chunks and {len(record['grads'])} "
+                 f"steps graphed, {n_chunks} and {len(ref['grads'])} eager")
+        err = {"loss": max(abs(a - b) / abs(b) for g, w in zip(
+            losses, want_losses) for a, b in zip(g, w))}
+        for g, w in zip(record["grads"], ref["grads"]):
+            for k, v in grads_err(g, w).items():
+                err[k] = max(err.get(k, 0.0), v)
+        err.update(vars_err(got, want, variables))
+        if counted.get("train.graph_captures") != 1 or counted.get(
+                "train.graph_replays") != n_chunks or counted.get(
+                "train.chunks") != n_chunks:
+            fail(f"6x: counters {counted}, want one capture and "
+                 f"{n_chunks} replays of {n_chunks} chunks")
+        want_bn = {"tak_bn_stats": 1, "tak_bn_finalize": 2,
+                   "tak_bn_normalize": 1, "tak_bn_grad_sums": 1,
+                   "tak_bn_grad_input": 1}
+        runs = n_chunks + WARMUP
+        if first != {k: v * bns * runs for k, v in want_bn.items()}:
+            fail(f"6x: the capturing call launched {first}, want "
+                 f"{runs} forwards and backwards of {bns} BatchNorms")
+        log(f"6x graphed learner against the eager loop (Net6 at the "
+            f"reference step, {n_chunks} chunks, {len(ref['grads'])} steps, "
+            f"cuDNN deterministic): loss parts {err['loss']:.2e}, summed "
+            f"gradients {err['grads']:.2e} (L2), a gradient tensor "
+            f"{err['tensor_l2']:.2e}, BN-led biases' gradients "
+            f"{err['bn_biases']:.2e}, the parameters' change "
+            f"{err['change']:.2e} (L2), BN-led biases' change "
+            f"{err['bn_bias_change']:.2e}, statistics {err['stats']:.2e}; "
+            f"{err['bitwise']} of {err['tensors']} returned tensors bitwise "
+            f"equal; counters {counted}; tak_bn_* launches of the "
+            f"capturing call {first} ({WARMUP} warm-up chunks); "
+            f"{t_graphed:.2f} s graphed with the capture, {t_eager:.2f} s "
+            f"eager")
+        if over(err):
+            fail(f"6x: the graphed learner disagrees with the eager loop: "
+                 f"{over(err)}, limits {limits}")
+
+        # back to back on one network against fresh networks
+        halves = (examples[:len(examples) // 2],
+                  examples[len(examples) // 2:])
+        before = dict(kb.LAUNCHES)
+        one = graphed.train(variables, halves[0],
+                            rng=np.random.default_rng(12),
+                            log=lambda *_: None)
+        again = {k: v for k, v in launches_since(before).items()
+                 if k.startswith("tak_bn_")}
+        two = graphed.train(one, halves[1], rng=np.random.default_rng(13),
+                            log=lambda *_: None)
+        fresh_one = Network(engine, cfg, device=dev).train(
+            variables, halves[0], rng=np.random.default_rng(12),
+            log=lambda *_: None)
+        fresh_two = Network(engine, cfg, device=dev).train(
+            fresh_one, halves[1], rng=np.random.default_rng(13),
+            log=lambda *_: None)
+        calls = (vars_err(one, fresh_one, variables),
+                 vars_err(two, fresh_two, fresh_one))
+        b2b = {k: (sum if k in ("bitwise", "tensors") else max)(
+            e[k] for e in calls) for k in calls[0]}
+        per_call = len(halves[0]) // CHUNK_SIZE
+        if again != {k: v * bns * per_call for k, v in want_bn.items()}:
+            fail(f"6x: a replaying call launched {again}, want six a "
+                 f"BatchNorm and chunk")
+        log(f"6x two calls back to back on one network against two fresh "
+            f"networks: the parameters' change {b2b['change']:.2e} (L2), "
+            f"BN-led biases' change {b2b['bn_bias_change']:.2e}, statistics "
+            f"{b2b['stats']:.2e}; {b2b['bitwise']} of {b2b['tensors']} "
+            f"tensors bitwise equal; a replaying call's tak_bn_* launches "
+            f"{again}, on {card}")
+        if over(b2b):
+            fail(f"6x: back-to-back calls disagree with fresh networks: "
+                 f"{over(b2b)}")
+    finally:
+        (torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = saved
+    return {"err": err, "b2b": b2b, "counters": counted,
+            "graphed_s": t_graphed, "eager_s": t_eager}
 
 
 def bf16_steps(got, want, terms):
@@ -4556,7 +4831,34 @@ def make_actor(engine, eval_fn, dev, moves, mesh=None, **search_options):
     return SelfPlayActor(engine, eval_fn, cfg, device=dev, mesh=mesh)
 
 
-def main(do_profile: bool = False, only_se8: bool = False):
+def learner_phases(dev, card):
+    """`--learner`: 6c-6e, 6x and 6p alone."""
+    import numpy as np
+    import torch
+
+    l5, _, vars5, buf5 = learner_net5_phase(dev, card)
+    agree = card_vs_cpu_phase(dev, card, vars5, buf5.examples)
+    del vars5, buf5
+    l6, _, vars6, _, ex6 = learner_net6_phase(dev, card,
+                                              np.random.default_rng(SEED))
+    gx = graphed_learner_phase(dev, card, vars6, ex6)
+    _, nccl_out = nccl_phase(card)
+    log(f"summary on {card}: learner Net5 {l5['examples_per_s']:,.0f} "
+        f"examples/s; learner Net6 {l6['examples_per_s']:,.0f} examples/s "
+        f"({l6['ms_per_step']:.1f} ms per step); card against CPU in "
+        f"float32: gradients {agree['grads']:.1e}; graphed against eager: "
+        f"gradients {gx['err']['grads']:.1e}, graphed call "
+        f"{gx['graphed_s']:.2f} s with its capture, eager "
+        f"{gx['eager_s']:.2f} s; NCCL world 1 chunk step "
+        f"{1e3 * nccl_out['train_s']:.1f} ms without the mesh, "
+        f"{1e3 * nccl_out['train_mesh_s']:.1f} ms with it")
+    print(json.dumps({"learner_ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def main(do_profile: bool = False, only_se8: bool = False,
+         only_learner: bool = False):
     try:
         import torch
     except ImportError:
@@ -4602,6 +4904,9 @@ def main(do_profile: bool = False, only_se8: bool = False):
                 log(f"  ptxas {name}: {line.strip()}")
     for name in kb.SOURCES:
         kb.library(name)
+    if only_learner:
+        learner_phases(dev, card)
+        return
     if only_se8:
         se_kernel, se_line = se_phases(dev, card)
         log(f"summary on {card}: build {t_build:.1f} s; {se_line}")
@@ -4797,6 +5102,7 @@ def main(do_profile: bool = False, only_se8: bool = False):
     del vars5, buf5
     l6, net6, vars6, cand6, ex6 = learner_net6_phase(dev, card, rng)
     bn_times = batch_norm_phase(dev, card)
+    gx = graphed_learner_phase(dev, card, vars6, ex6)
     pit_launches, pit_out, captured = pit_phase(engine, net6, vars6, cand6,
                                                 dev, card)
     pit_times, pit_floors = pit_kernels_phase(captured, card)
@@ -4879,7 +5185,8 @@ def main(do_profile: bool = False, only_se8: bool = False):
         f"learner Net5 {l5['examples_per_s']:,.0f} examples/s "
         f"({l5['ms_per_chunk']:.2f} ms per chunk); learner Net6 "
         f"{l6['examples_per_s']:,.0f} examples/s ({l6['ms_per_step']:.1f} ms "
-        f"per step, {100 * l6['bf16_share']:.1f}% of the bf16 peak); card "
+        f"per step, {100 * l6['bf16_share']:.1f}% of the bf16 peak; graphed "
+        f"against eager: summed gradients {gx['err']['grads']:.1e} (L2)); card "
         f"against CPU in float32: loss {agree['loss']:.1e}, gradients "
         f"{agree['grads']:.1e} (L2), statistics {agree['stats']:.1e}; pit "
         f"{pit_out['plies_per_s']:.2f} plies/s ({pit_out['ms_per_search']:.1f} "
@@ -5102,4 +5409,5 @@ def sync():
 
 if __name__ == "__main__":
     main(do_profile="--profile" in sys.argv[1:],
-         only_se8="--se8" in sys.argv[1:])
+         only_se8="--se8" in sys.argv[1:],
+         only_learner="--learner" in sys.argv[1:])

@@ -65,8 +65,9 @@ def _single_step(network, variables, planes, pi, z):
     loss, lp, lz = network._loss(model, planes, pi, z)
     loss.backward()
     opt.step()
-    return ({k: p.detach().float().cpu() for k, p in model.named_parameters()},
-            lp.item(), lz.item())
+    # copies: the network's train module is loaded anew by its next step
+    return ({k: p.detach().float().cpu().clone()
+             for k, p in model.named_parameters()}, lp.item(), lz.item())
 
 
 def _param_dev(a: dict, b: dict) -> float:

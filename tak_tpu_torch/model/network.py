@@ -10,7 +10,10 @@
     of 10,000 examples (network.rs:17-21,92-96); each chunk is expanded 8x
     by D4 symmetry on the device (example.rs:62-78); loss =
     -sum(pi * log_softmax)/B + sum((z - v)^2)/B (network.rs:84-87).  The
-    optimizer is rebuilt per call, as upstream does.
+    optimizer is rebuilt per call, as upstream does; the train module is
+    built once and loaded in place each call, and on a card without a
+    mesh its forward and backward replay as CUDA graphs
+    (`model/train_graph.py`).
   * `variables_from_numpy` / `variables_to_numpy` — flax's nested numpy
     `{params, batch_stats}` <-> the port's unfolded `state_dict`, for
     either policy head, with the SE blocks' dense layers (flax
@@ -47,6 +50,7 @@ from ..types import GameState
 from ..utils.device import resolve_device
 from ..utils.profiling import count, span
 from .resnet import BN_EPS, BatchNorm, NetConfig, SqueezeExcite, TakResNet
+from .train_graph import ChunkGraphs
 
 LEARNING_RATE = 1e-4
 WEIGHT_DECAY = 1e-4
@@ -265,6 +269,8 @@ class Network:
             # cuDNN's Hopper convolutions run NHWC: no layout copies
             self.model = self.model.to(memory_format=torch.channels_last)
         self._loaded = None
+        self._train_module = None
+        self._graphs = None
         self._legacy = None
         if self.config.policy_head == "dense":
             self._legacy = torch.as_tensor(engine.tables.legacy_actions,
@@ -331,21 +337,42 @@ class Network:
                                 weight_decay=WEIGHT_DECAY)
 
     def _train_model(self, variables: dict, mesh=None) -> TakResNet:
-        """A fresh unfolded module in train mode holding float32 copies of
-        `variables` on the network's device; with `mesh`, its BatchNorms
-        take global batch statistics."""
-        model = TakResNet(self.config)
-        # one copy a tensor, each waiting for the card's queue
-        with span("train.upload_model", sync=len(model.state_dict())):
-            model = model.to(self.device)
-        if self.device.type == "cuda":
-            model = model.to(memory_format=torch.channels_last)
+        """The unfolded module in train mode holding float32 copies of
+        `variables` on the network's device, every `.grad` zero.  Without
+        `mesh` it is one module for the network's life: built at the first
+        call, then loaded in place (`load_state_dict` copies parameters,
+        running statistics and `num_batches_tracked` into its tensors),
+        so that the CUDA graphs of its chunk keep their addresses.  With
+        `mesh`, a fresh module whose BatchNorms take global batch
+        statistics."""
+        model = self._train_module if mesh is None else None
+        if model is None:
+            model = TakResNet(self.config)
+            # one copy a tensor, each waiting for the card's queue
+            with span("train.upload_model", sync=len(model.state_dict())):
+                model = model.to(self.device)
+            if self.device.type == "cuda":
+                model = model.to(memory_format=torch.channels_last)
+            if mesh is None:
+                self._train_module = model
+            else:
+                for m in model.modules():
+                    if isinstance(m, BatchNorm):
+                        m.mesh = mesh
         model.load_state_dict(variables)
-        if mesh is not None:
-            for m in model.modules():
-                if isinstance(m, BatchNorm):
-                    m.mesh = mesh
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            else:
+                p.grad.zero_()
         return model.train()
+
+    def _chunk_graphs(self, model: TakResNet) -> ChunkGraphs:
+        """The CUDA graphs of `model`'s chunk, kept while they address its
+        tensors."""
+        if self._graphs is None or not self._graphs.holds(model):
+            self._graphs = ChunkGraphs(model)
+        return self._graphs
 
     @cached_property
     def _sym_tables(self):
@@ -413,7 +440,9 @@ class Network:
     def _chunk_arrays(self, pre, idx):
         """One chunk's (states, acts, vis, z) on the device, gathered from
         the prestacked epoch; the sparse pairs are padded to a power-of-two
-        width."""
+        width.  On a card they go up from pinned memory without blocking:
+        the copies queue behind the previous chunk's work, and the host
+        goes on to queue this chunk's."""
         states, off, lens, cat_acts, cat_vis, z = pre
         rows = {k: v[idx] for k, v in states.items()}
         l = lens[idx]
@@ -424,19 +453,24 @@ class Network:
         acts = np.where(mask, cat_acts[pos], 0)
         vis = np.where(mask, cat_vis[pos], 0.0).astype(np.float32)
 
-        def dev(x):
-            return torch.as_tensor(x, device=self.device)
-
-        # each copy from pageable host memory waits for the card's queue
-        with span("train.upload", sync=len(rows) + 3):
-            return (GameState.from_numpy(rows, self.device), dev(acts),
-                    dev(vis), dev(z[idx]))
+        if self.device.type == "cuda":
+            def dev(x):
+                return torch.as_tensor(x).pin_memory().to(self.device,
+                                                          non_blocking=True)
+            blocking = 0
+        else:
+            # counted as the blocking copies pageable memory would make
+            dev, blocking = torch.as_tensor, len(rows) + 3
+        with span("train.upload", sync=blocking):
+            return (GameState.from_numpy(rows).map(dev), dev(acts), dev(vis),
+                    dev(z[idx]))
 
     def _accum_chunk(self, model, states, acts, vis, z, world: int = 1):
         """Planes, targets and the 8x symmetry expansion of one chunk (this
         rank's rows of it over `world` ranks), then its loss's gradients
-        ADDED to the model's `.grad` (and its batch statistics moved).
-        Returns the (policy, value) loss parts."""
+        ADDED to the model's `.grad` (and its batch statistics moved);
+        `model` is the train module or its `ChunkGraphs`.  Returns the
+        (policy, value) loss parts."""
         planes = self.observe_batch(states)
         pi = self._build_pi(acts, vis)
         planes, pi, z = self._symmetry_expand(planes, pi, z)
@@ -465,7 +499,12 @@ class Network:
         accumulated gradients are summed over the ranks (one all-reduce
         per optimizer step) before Adam steps; the logged `p=`/`z=` are
         the global means.  Same math, same effective batch; every rank
-        returns the same variables."""
+        returns the same variables.
+
+        On a card without `mesh`, each chunk's model forward and backward
+        replay as CUDA graphs (`ChunkGraphs`, captured at a shape's first
+        chunk); the planes, targets, symmetry expansion, loss arithmetic
+        and Adam's step stay eager.  Otherwise the chunk runs eagerly."""
         from ..parallel.mesh import (
             all_reduce_grads,
             all_reduce_sum,
@@ -481,6 +520,10 @@ class Network:
             model = self._train_model(variables, mesh)
             opt = self.make_optimizer(model.parameters())
             world = 1 if mesh is None else mesh.world
+            graphs = (self._chunk_graphs(model)
+                      if mesh is None and self.device.type == "cuda"
+                      else None)
+            run = model if graphs is None else graphs
 
             def step(lp, lz, what):
                 with span("train.step"):
@@ -509,13 +552,17 @@ class Network:
                         with span("train.assemble"):
                             arrays = self._chunk_arrays(pre,
                                                         shard_rows(mesh, idx))
+                        replays = 0 if graphs is None else graphs.replays
                         with span("train.forward_backward"):
-                            lp, lz = self._accum_chunk(model, *arrays, world)
+                            lp, lz = self._accum_chunk(run, *arrays, world)
                     count("train.chunks")
+                    if graphs is not None and graphs.replays > replays:
+                        count("train.graph_replays")
                     done += 1
                     if done % chunks_in_step == 0:
                         step(lp, lz, "step")
-                        opt.zero_grad()
+                        # in place: the backward graph adds into .grad
+                        opt.zero_grad(set_to_none=False)
             if total_chunks % chunks_in_step != 0:
                 step(lp, lz, "step (trailing flush)")
             dt = time.time() - t0

@@ -282,3 +282,122 @@ def test_train_leaves_its_input_and_eval_cache_alone():
     p_again, _ = net.policy_eval_states(variables, states)
     assert not torch.equal(p_new, p_old)
     assert torch.equal(p_again, p_old)
+
+
+def _perturbed(variables, seed):
+    """Other weights, running statistics and `num_batches_tracked`."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in variables.items():
+        if k.endswith("num_batches_tracked"):
+            out[k] = v + 3 + seed
+        elif k.endswith("running_var"):
+            out[k] = v + torch.rand(v.shape, generator=g)
+        else:
+            out[k] = v + 0.1 * torch.randn(v.shape, generator=g)
+    return out
+
+
+def test_persistent_module_equals_fresh_networks():
+    """Two `train` calls on one `Network` (its train module built once and
+    loaded in place) give bitwise the variables of the same calls on two
+    fresh ones.  The second call starts from other weights, statistics
+    and `num_batches_tracked`, and the first ends in a trailing flush
+    that leaves its gradients in `.grad`, so a stale tensor shows."""
+    cfg = NetConfig(n=N, filters=FILTERS, blocks=BLOCKS, dtype=torch.float32)
+    exs = [Example(**e) for e in _examples(6)]
+    v0 = Network(Engine(N), cfg, device="cpu").init_variables(2)
+    v1 = _perturbed(v0, 1)
+
+    def call(net, variables, seed):
+        return net.train(variables, exs, rng=np.random.default_rng(seed),
+                         chunk_size=CHUNK, chunks_in_step=IN_STEP,
+                         log=lambda m: None)
+
+    one = Network(Engine(N), cfg, device="cpu")
+    got = [call(one, v0, 1), call(one, v1, 2)]
+    want = [call(Network(Engine(N), cfg, device="cpu"), v0, 1),
+            call(Network(Engine(N), cfg, device="cpu"), v1, 2)]
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert torch.equal(g[k], w[k]), k
+    assert int(got[1]["stem_bn.num_batches_tracked"]) == int(
+        v1["stem_bn.num_batches_tracked"])
+    assert not torch.equal(got[0]["stem.weight"], got[1]["stem.weight"])
+
+
+def test_train_model_is_plain_and_persistent():
+    """`_train_model` gives one plain `TakResNet` a network, loaded anew
+    with `.grad` zero each call, that still runs a batch of any size
+    after a `train` call."""
+    from tak_tpu_torch.model.resnet import TakResNet
+
+    cfg = NetConfig(n=N, filters=FILTERS, blocks=BLOCKS, dtype=torch.float32)
+    net = Network(Engine(N), cfg, device="cpu")
+    variables = net.init_variables(0)
+    exs = [Example(**e) for e in _examples(7)]
+    net.train(variables, exs, rng=np.random.default_rng(0), chunk_size=CHUNK,
+              chunks_in_step=IN_STEP, log=lambda m: None)
+    model = net._train_model(variables)
+    assert type(model) is TakResNet and model.training
+    assert net._train_model(variables) is model
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, variables[k]), k
+    assert all(p.grad is not None and not p.grad.any()
+               for p in model.parameters())
+    planes = net.observe_batch(GameState.from_numpy(
+        {k: np.stack([e.state[k] for e in exs[:3]]) for k in FIELDS}))
+    logits, value = model(planes)
+    assert logits.shape == (3, net.engine.num_actions)
+    assert value.shape == (3,)
+
+
+def test_loss_and_accum_chunk_once_a_chunk_with_fresh_losses():
+    """`train` calls `_accum_chunk` and `_loss` once a chunk, in Python,
+    and every loss tensor `_loss` returns keeps its value to the end:
+    `benchmark/drivers/learner.py` keeps them."""
+    net = Network(Engine(N), NetConfig(n=N, filters=FILTERS, blocks=BLOCKS),
+                  device="cpu")
+    exs = [Example(**e) for e in _examples(8)]
+    accum, loss_fn = net._accum_chunk, net._loss
+    calls, losses = [], []
+
+    def tapped_accum(*a, **k):
+        calls.append("accum")
+        return accum(*a, **k)
+
+    def tapped_loss(model, planes, pi, z, world=1):
+        calls.append("loss")
+        out = loss_fn(model, planes, pi, z, world)
+        losses.append((out[0].detach(), out[0].detach().clone()))
+        return out
+
+    net._accum_chunk, net._loss = tapped_accum, tapped_loss
+    net.train(net.init_variables(0), exs, rng=np.random.default_rng(0),
+              chunk_size=CHUNK, chunks_in_step=IN_STEP, log=lambda m: None)
+    chunks = EXAMPLES // CHUNK
+    assert calls == ["accum", "loss"] * chunks
+    assert len({kept.data_ptr() for kept, _ in losses}) == chunks
+    for kept, copy in losses:
+        assert torch.equal(kept, copy)
+
+
+def test_mesh_gets_a_fresh_module():
+    """With a mesh, `_train_model` builds a new module each call, its
+    BatchNorms on the mesh; the network's own module is left alone."""
+    from tak_tpu_torch.model.resnet import BatchNorm
+    from tak_tpu_torch.parallel.mesh import Mesh
+
+    net = Network(Engine(N), NetConfig(n=N, filters=FILTERS, blocks=BLOCKS),
+                  device="cpu")
+    variables = net.init_variables(0)
+    mesh = Mesh(group=None, rank=0, world=1, device=torch.device("cpu"),
+                backend="gloo")
+    own = net._train_model(variables)
+    a, b = (net._train_model(variables, mesh) for _ in range(2))
+    assert a is not b and own not in (a, b)
+    assert net._train_model(variables) is own
+    for m, want in ((a, mesh), (own, None)):
+        bns = [x for x in m.modules() if isinstance(x, BatchNorm)]
+        assert bns and all(x.mesh is want for x in bns)
