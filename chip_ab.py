@@ -352,7 +352,7 @@ def env_ab(other_dir: str, dev, card):
                 step_ms[k] = cs.launch_ms(lambda: fused_step(engine, *v))
         roll = cs.cuda_ms(
             lambda _: env_rollout(engine, start, cs.R_STEPS, **seeded), 5)
-        _, _, rate = cs.env_rollout_phase(engine, dev, card)
+        _, rate = cs.env_rollout_phase(engine, dev, card)
         cs.log(f"{name}: fused_step " + ", ".join(
             f"{k} {t:.4f} ms" for k, t in step_ms.items())
             + "; fused_step_legal " + ", ".join(

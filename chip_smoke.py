@@ -1,279 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (`tak_tpu_torch`) on one NVIDIA card.
+"""Hold the PyTorch/CUDA port (`tak_tpu_torch`) on one NVIDIA card: each
+hand-written kernel bitwise against its plain PyTorch version at the
+shapes the port's paths give it, each path driven end to end with its
+kernel launches counted, and each kernel timed beside the least time the
+card could take.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py 6e 6x        # the build and the named phases
 
-Phases, each fatal on failure:
-  1. print the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from `tak_tpu_torch/csrc/` (nvcc, in parallel);
-  3. hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, bitwise:
-       * fused step on 8,192 rows of varied 6x6 positions (seeded random
-         playouts), with disabled rows and finished games; at every size
-         3-8 the fused step and the env rollout (4 steps, given words and
-         seeded) on the hand-built cases of `tak_tpu_torch.engine.env_cases`
-         (stacks across a word boundary, full carries to the edge, a
-         capstone smash, a spread that completes both roads, a snake road,
-         the last piece of a reserve, a full board, the reversible draw,
-         plies 0-1, disabled and finished rows) and on 1,024 playout rows
-         (the rollout 8 steps with given words), and on both row sets the
-         fused step with legal bits (states and packed words) and the legal
-         sampler (given words and seeded, on the rows and on the rows their
-         step leaves); the fused step with legal bits on the 8,192 rows, on
-         1,024 playout rows at 5x5 and 8x8, and (phase 5) on a Player
-         wave's 64 leaf rows: states and packed words, and the words
-         unpacked against `Engine.legal_mask`;
-       * the legal sampler on those 8,192 rows and the env rollout at
-         8,192 rows x 64 steps, each with given random words and with a
-         seed (Philox written out in the kernel and in the plain version);
-       * one backup+descend wave (valid=1), one descend wave (valid=0) and
-         one expand+backup flush on 32 trees mid-search, with the 1280-node
-         pool full so every create recycles a node; then the three in turn
-         on the recycling cases of `tak_tpu_torch.mcts.tree_cases` (the
-         create's own parent as the coldest candidate, a full pool without
-         a victim, tied and clamped keys, a leaf unpinned and evicted in
-         one merged wave) and on its shared-prefix, repeated-leaf and
-         deep-chain trees with recycling, at K=32, A=9,036, M=1,280;
-       * the large-tree descend and expand+backup waves at the Player's
-         shape (one game, V=64, K=128, a 131,072-node pool, 9,036 actions)
-         on a tree of about two thousand nodes grown by 30 waves of the
-         plain versions, again on 8 trees grown by 20, and on a small pool
-         that runs out inside the wave; the pool-tier kernels run on the same trees with
-         recycling off, for comparison; then on the hand-built trees of
-         `tak_tpu_torch.mcts.tree_cases` (a 40-edge prefix shared by all
-         leaves, every leaf twice, one leaf 64 times, a chain deeper than
-         the backup kernel's path buffer, a wave of root creates, a pool
-         that fills up, a path through an unexpanded node) at K=128 and K=32;
-  4. the self-play slice: SelfPlayActor at 6x6, 32 lockstep games, 10,240
-     sims per move, wave 256, K=32, recycling in the default 1280-node
-     pool, tree reuse (reroot_keep unset, as bench.py leaves it),
-     instant-win scan on, Net6 (16 blocks x 128 filters, random weights
-     from a seeded torch.Generator) in bf16, for 3 searched moves.  Checks:
-     every chosen action is legal, every root gains exactly the searched
-     sims, every pool-tier kernel launched during the slice;
-  5. the Player slice: one `Player` with its default configuration (wave
-     64, K=128, a 131,072-node pool, no recycling: the large-tree tier),
-     root noise, 800 rollout waves (51,200 rollouts) per move, three moves
-     with tree reuse, analysis and examples.  Checks: the root counts
-     1 + rollouts on a fresh tree, the moves are legal, the carried
-     subtree's visits survive the reroot, the large-tree kernels launched
-     and the pool-tier tree kernels did not.  Then the three kernels of
-     this path again at the shapes it gave them, bitwise against their
-     plain versions and timed: both large-tree waves on move 1's searched
-     tree, the fused step on that wave's 64 leaf rows and on one row (as
-     `Game.play` steps).  Then a Player at wave 512 (`-b 512`), wider
-     than the backup kernel's shared memory holds, for 8 waves, and both
-     large-tree waves at V=512 on its tree, bitwise and timed;
-  6. the entry points as subprocesses: a TEI dialogue over pipes and the
-     analysis command line on a short PTN file;
-  6a. the self-play slice again with `fused_leaf_legal=True` for 2 searched
-     moves (same seed, weights and openings): the fused step with legal
-     bits launched, root counts and legal moves as in phase 4, and move
-     1's searched tree bitwise equal to phase 4's; then one searched move
-     with `topk_impl="packedq"`;
-  6b. the env rollout as a user drives it: `Engine.env_rollout_fn(64)` on
-     8,192 fresh 6x6 games, one warm-up launch and 8 timed launches (seeds
-     1..8) with one synchronization: env steps per second.  Checks: nothing
-     but the rollout kernel launched, every row ongoing, pieces conserved;
-     then the sampler kernel draws one action per final row, all legal;
-  6c. the learner on real data: the trained Net5 (`runs/train5_r3`) and its
-     committed buffer of 28,215 5x5 self-play examples, one `Network.train`
-     pass (56 chunks of 500: 2 Adam steps and the trailing flush) after a
-     one-chunk warm-up: examples/s, ms per chunk, each step's loss parts.
-     Checks: losses and weights finite, every parameter changed;
-  6d. card against CPU: one chunk of Net5 in float64 (125 examples) and in
-     float32 (500), TF32 off, on the card and through the port on the CPU:
-     the loss parts, the summed gradients and the new batch statistics
-     within the tolerances of `card_vs_cpu_phase` (the card's BatchNorms
-     on the `tak_bn_*` kernels, float64 ones included; the CPU's on the
-     plain Function);
-  6e. the learner at the reference step: the trained Net6
-     (`runs/train6_r4/_models/1787285471.model`), 20,000 seeded 6x6
-     examples, 2 steps of 20 x 500 x 8 = 80,000 rows after a one-chunk
-     warm-up: examples/s, ms per step, the share of the bf16 peak; every
-     BatchNorm of the 2 steps on the `tak_bn_*` kernels (six launches a
-     forward and backward) and none on the plain version; then the
-     kernels against the plain Function at a chunk's shape (4,000 x 128 x
-     6 x 6, bf16, channels-last; `batch_norm_phase`): y and dx within one
-     bf16 step, statistics and parameter gradients within stated float32
-     tolerances, and their forward and backward times beside the byte
-     floor and the plain version's;
-  6f. the pit at its defaults (128 games, 800 sims, wave 16, K=128, a
-     1,602-node pool, tree reuse) cut to max_plies 16, its only cut: the
-     trained Net6 against 6e's candidate; plies/s and ms per half-batch
-     search.  Checks: the launches of #1-#4 equal those the config
-     implies, every game counted, visits carried by reuse.  Then #2, #4
-     and #3 bitwise against their plain versions on the tree that each
-     first half-batch search started from (carried by reuse), grown by 1,
-     4, 10 or 25 of its waves, and timed with their bound and chain floor
-     on ply 8's tree grown by 10 waves;
-  6g. the generation loop through `python -m tak_tpu_torch.cli.train` as
-     subprocesses in a temporary workdir: 2 generations from the trained
-     Net6, then `--resume` to a third (full width; cut: 4 self-play games
-     of 256 rollouts, 4 pit games of 64 rollouts, chunks of 50, 4 a step).
-     Checks: the artifacts, that the resumed run starts at generation 3,
-     that the port's `load_run` reads the checkpoint;
-  6h. the "xla" search path against the pool-tier kernels at V = 1: the
-     32 mid-game roots, K=32, a recycled 48-node pool (full in every
-     game), the trained Net6 in bf16, 128 waves of one descent: the two
-     trees bitwise equal in every field, node states, `root_w` and
-     `edge_w` included; the launches of both from the config;
-  6i. self-play on the "xla" path (`backend="xla"`) at the reference
-     config for one searched move: the tier, visit conservation and the
-     recycling invariants of `tests/test_recycle.py` on every tree, sims/s
-     and ms per wave beside the pool tier's sims/s of phase 4;
-  6j. Gumbel self-play (gumbel_m=16) at the reference config, 2 searched
-     moves: the tier, move 1's root visits equal to the sequential-halving
-     schedule's in every game, targets summing to 65535 within rounding,
-     legal moves; sims/s;
-  6k. quad-rollout self-play (workers=1, quad_rollout_plies=6, the
-     reference search config), cut to 8 plies: the #1-#4 launches of
-     every search call from the config, 4 calls a move below ply 6, early
-     examples carrying 4x the visits of late ones; sims/s;
-  6l. the dense Net5 head (5x5, 8 x 128, 1,575 legacy moves, seeded
-     weights): the card's float32 forward against the CPU's within
-     DENSE_TOL, a pool-tier self-play search of 2 moves with its launch
-     counts, one `Network.train` pass over the committed 5x5 buffer;
-     examples/s;
-  6m. the playtak bot over a scripted server on 127.0.0.1 (a thread of
-     this script): the trained Net6, the `Player` at its defaults,
-     time_to_think 1 s, the server pausing 0.5 s before each reply so the
-     bot ponders; checks the lines received (each move legal), at least
-     two ponder ticks, the analysis PTN and the examples file read back,
-     #1, #8 and #9 launched; rollouts per think, ms per wave;
-  6n. 256 seeded playouts on the native engine (`tak_tpu_torch.native`)
-     replayed through the batched step on the card (#1): results, plies,
-     reserves and boards equal;
-  6o. two ranks on the one card (spawned processes, an explicit gloo group,
-     CUDA tensors; NCCL refuses two ranks on one device):
-     `graft_entry.dryrun_multichip(2, "cuda")` (the flagship Net6 in
-     float32: a `DPLearner` step within 4x a row-permutation control of one
-     process's, and a sharded move equal to one process's), then one
-     self-play move at the reference config, 16 games a rank, with the
-     exact evaluator of `graft_entry.exact_eval`: examples and chosen
-     moves bitwise those of one process, each rank's #2-#4 launches from
-     the config; then two moves of the trained Net6, the second timed (a
-     shared card: not a scaling figure);
-  6p. NCCL at world size 1 in a spawned process: one `Network.train` step
-     of the trained Net6 on one chunk (500 seeded examples, 4,000 rows)
-     and one searched move, each with the mesh and without, bitwise equal
-     (cuDNN deterministic);
-  6q. `python -m tak_tpu_torch.cli.warmup` at the reference config (Net6,
-     the pit at its defaults): every stage named, their times; then
-     `utils.profiling.trace` around one self-play move: the Chrome trace
-     names `backup_descend_kernel` (#2, #4) and `expand_backup_kernel`
-     (#3);
-  6r. the root-policy quality probe (`tak_tpu_torch.tools.quality`) at
-     `quality_recycle`'s defaults: 8 random 6x6 positions 24 plies deep,
-     Net6 on seed-0 weights, 10,000 sims at wave 16 on the recycled
-     1,280-node pool (K=32, chunks of 512 sims) and on the large-tree
-     tier (K=128, budget 20,002): TV, top-1 agreement and each side's
-     seconds; every policy row sums to 1 (within 1e-9) on the legal mask
-     and the root's edge visits equal what the root holds; #2-#4 launched
-     on the pool side only, #8/#9 on the other; then #2-#4
-     (`captured_pool_phase`) and #8/#9 (`check_hbm_on_tree`) bitwise and
-     timed on each side's searched tree; `python -m
-     tak_tpu_torch.tools.quality_k` at its defaults on the card;
-  6s. the strength A/B (`tak_tpu_torch.tools.strength_ab`) on the trained
-     Net6: preset `recycle`, 8 games, 800 sims, cut to 16 plies, in
-     process: the record's keys, game count and `wilson_ci`, #2-#4 and
-     #8/#9 launched; then `--subprocess-rounds` over two child rounds of
-     4 games cut to 8 plies: two lines, the printed total their sum;
-     the peak RSS of this process before and after, and of the children;
-  6t. the port's benchmark program, `python -m tak_tpu_torch.bench` at its
-     defaults, as a subprocess: its one line has `bench.py`'s keys, names
-     the card, echoes the sizes, every rate positive (the line is printed
-     here, never in the last line); then its MCTS tier in process (512
-     games x 512 sims, wave 32, K=32, 514 nodes without recycling, Net6 on
-     seed-0 weights) with the #1-#4 launches of its 4 searches asserted and
-     every root holding 513 visits; then the tier's tree grown by 8 of its
-     16 pipelined waves: #2, #4 and #3 bitwise against their plain
-     versions and timed beside bound and chain floor, and #1 bitwise and
-     timed on that wave's 16,384 leaf rows;
-  6u. the profiling harnesses (`tak_tpu_torch.tools.profile_*`,
-     `diag_bn_mismatch`) in process from launch counts of 0, each
-     `main(argv, env)` (`U_RUNS`): at their defaults profile_kernels,
-     profile_wave (also `BENCH_RECYCLE=1`), profile_ab (pairs `topk` and
-     `fused-legal`), profile_hbm, profile_micro, the three profile_topk*
-     and profile_nn; with smaller knobs profile_selfplay (2,048 sims, 2
-     moves), profile_move_phases (one rep) and profile_recycle_grid (one
-     grid point at 2,048 sims); then `diag_bn_mismatch.run` (2 games, 64
-     sims, pits cut to 24 plies: `U_DIAG`) on a 6x6 checkpoint of the
-     trained Net6 and 1,000 seeded examples written by
-     `save_training_run`;
-     every time and rate on their lines finite and positive, profile_nn's
-     matmul towers within 2^-5 of the cuDNN tower's largest policy
-     magnitude, the exact top-K strategies equal to `torch.topk`, and
-     #1-#5, #8, #9 launched; then #2-#4 and #1 bitwise and timed at
-     B=256, V=16, K=64 on 514 nodes after 16 of 32 waves and on a full
-     recycled 1,280-node pool, and #8/#9 (with #1, #5 and the pool-tier
-     kernels on the same tree) at profile_hbm's B=32, V=8, K=96, M=20,002
-     and at profile_selfplay's default tree (V=16, K=128);
-  6v. the SE net at 8x8 (`lc0se-20x256-8x8`: 20 x 256, 32 SE channels,
-     seeded random weights): `tak_se_epilogue` against its plain version
-     (within one bf16 step, at most 0.1% of outputs off) at a wave's 8,192
-     rows and at odd shapes, timed beside its byte floor; one searched
-     32-game move at the reference search through `SelfPlayActor.run` on
-     the pool tier, the epilogue launched once a block a call; #2, #4, #3
-     and #1 bitwise at 8x8 (A=65,216) on a full recycled pool;
-  6w. with four cards, four NCCL ranks of `Network.train` on the trained
-     Net6 (two steps of 4 chunks of 500): every rank's variables bitwise
-     equal, each leaf's change within the benchmark learner's limits of
-     one process's (skipped, and said so, on fewer cards);
-  6x. (run after 6e) the graphed learner against the eager loop at the
-     reference step, cuDNN held to deterministic algorithms: a fresh
-     Net6 `Network.train` call (each chunk's forward and backward
-     replayed as CUDA graphs) on 6e's 20,000 examples and weights, and
-     the same two steps built from the seams (`_train_model`,
-     `_chunk_arrays`, `_accum_chunk` on the plain module).  Each chunk's
-     loss parts, each step's summed gradients, the running statistics
-     and the returned variables within `graphed_learner_phase`'s
-     tolerances; then two calls back to back on that network against the
-     same calls on two fresh ones.  Logs the captures and replays (the
-     program's counters) and the `tak_bn_*` launches: a capturing call
-     counts its warm-up's, a replaying one six a BatchNorm and chunk;
-  7. time each kernel (CUDA events; a kernel launched twenty times back to
-     back behind a spin long enough for the host to queue them all) and
-     its plain version at the main paths' shapes, with the least time the
-     card could take (bound), and the launch floor (`zero_()` on 64 int32
-     timed the same way) beside the fused step's small shapes; for the
-     five tree waves also the chain
-     floor: a one-thread pointer chase along the wave's own paths (down
-     through `edge_child` for the descents, up through `parent` for the
-     backups), since descents that see each other's marks cannot approach
-     a throughput bound;
-  8. print one `{"kernels": [...]}` line, then the `{"ok": true, ...}` line.
-     A kernel's `ms`, `plain_ms` and `bound_ms` are those of its main-path
-     shape (the large-tree waves: the Player's own tree); `other_shapes`
-     holds its times elsewhere (#2-#4 at the pit's, quad, dense Net5,
-     quality-probe, bench MCTS-tier and the harnesses' shapes, #1 at the
-     bench tier's wave and the harnesses' leaf rows, #8/#9 at the quality
-     probe's and the harnesses' too), `launches_by_path` the count of
-     each path (the pit's, the quality probe's, the A/B's, the bench MCTS
-     tier's and the harnesses' included).  The tenth entry, `batch_norm`
-     (`csrc/batch_norm.cu`), replaces no TPU kernel (`replaces` null):
-     one forward and backward at a Net6 chunk's shape (`other_shapes`
-     splits them), its launches those of 6e's two steps.  The eleventh,
-     `squeeze_excite` (`csrc/squeeze_excite.cu`), replaces none either:
-     6v's wave, and the pool-tier kernels at 8x8 under `other_shapes`.
+Prints the card's name and power limit, builds `tak_tpu_torch/csrc/`
+(nvcc, in parallel), then runs the phases of `PHASES` in this order, each
+fatal on failure and each described by its function's docstring:
 
-`--learner` runs the build, 6c-6e, 6x and 6p only, and prints a
-`{"learner_ok": true, ...}` line, never the whole smoke's `ok`.
+    3a 3b 3c 3d 4 5 6 6a 6b 6c 6d 6e 6x 6f 6g 6h 6i 6j 6k 6l 6m 6n 6o
+    6p 6q 6r 6s 6t 6u 6v 6w
 
-`--se8` runs the build, 6v and 6w only, and prints the eleventh entry
-and a `{"se8_ok": true, ...}` line: a pass of those phases alone, never
-the whole smoke's `ok`.
+Named phases run in that order, whatever the order given.  What several
+phases share (the networks, the 32 roots, the seeded examples) is built
+on its first use.  The last two lines:
 
-`--profile` adds, before the last two lines, where one self-play move's
-search (with `fused_leaf_legal` off and on), 200 Player waves, one Net6
-optimizer step (also one BatchNorm alone, device time by kernel family),
-one pit half-batch search and one bench MCTS-tier search spend their
-time: the program's spans under `utils.profiling.trace` (calls, host
-self ms and device ms by `tak.` range, no synchronisation added), then
-torch.profiler's device time by kernel.
+  * `{"kernels": [...]}`: each kernel the phases timed.  `ms`, `plain_ms`,
+    `bound_ms` and `bound_by` are those of its main-path shape (the
+    large-tree waves: the Player's own tree); the bound is the benchmark's
+    count arithmetic (`benchmark/reference/counts.py`) at the H100 SXM's
+    peaks.  The five tree waves add `chain_floor_ms`, a one-thread pointer
+    chase along the wave's own paths (descents that see each other's marks
+    cannot approach a throughput bound).  `other_shapes` holds a kernel's
+    times at the other paths' shapes, `launches_by_path` its launches on
+    each path the phases drove from counts of 0.  `batch_norm` and
+    `squeeze_excite` replace no TPU kernel (`replaces` null).
+  * `{"ok": true, "device": ...}` after every phase; after named phases
+    `{"phases_ok": [...], "device": ...}`, never `ok`.
 
-Exits non-zero, printing no result, without a CUDA device or without the
-`tak_tpu_torch` package beside this file.
+Exits non-zero, printing no result, on an unknown label, without a CUDA
+device or without the `tak_tpu_torch` package beside this file.
 """
 
 from __future__ import annotations
@@ -288,7 +48,10 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import cached_property
 from pathlib import Path
+
+from benchmark.reference import counts
 
 N = 6
 GAMES = 32
@@ -359,10 +122,6 @@ AB_PLIES = 16                  # its max_plies: the opening's 4 + 12 searched
 AB_SUB_GAMES = 4               # each of the two child rounds
 AB_SUB_PLIES = 8
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-BF16_OPS_PER_S = 989e12        # H100 SXM tensor cores, dense
-F32_OPS_PER_S = 67e12          # H100 SXM, outside the tensor cores
-
 REPLACES = {
     "fused_step": "tak_tpu/engine/pallas_env.py:704",
     "fused_step_legal": "tak_tpu/engine/pallas_env.py:836",
@@ -376,10 +135,6 @@ REPLACES = {
 }
 POOL_TIER = ("backup_descend_wave", "descend_wave", "expand_backup_wave")
 HBM_TIER = ("descend_wave_hbm", "expand_backup_wave_hbm")
-PATHS = ("selfplay", "player", "fused_leaf_legal", "env_rollout", "pit",
-         "xla_v1", "xla", "gumbel", "quad", "dense_net5", "bot",
-         "native_replay", "sharded_rank0", "nccl_world1", "quality",
-         "strength_ab", "bench_mcts", "profiling_tools")
 SOURCES = {
     "fused_step": "tak_tpu_torch/csrc/fused_step.cu",
     "fused_step_legal": "tak_tpu_torch/csrc/fused_step_legal.cu",
@@ -528,85 +283,35 @@ def compare_trees(a, b, what):
     compare_states(a.state, b.state, what + " (node states)")
 
 
-def tree_bytes(before, after, V, descend: bool, backup: bool):
-    """Least bytes a wave must move, from this run's data: the root tier
-    read once per launch when descending, the root entries the wave
-    changed, the node tier, the edge rows the wave changed (read and
-    written), the pending inputs and the outputs."""
-    import torch
-
-    B, M, Kk = before.edge_n.shape
-    A = before.root_n.shape[1]
-    total = 0
-    if descend:
-        total += B * A * (4 + 1 + 4 + 4 + 4 + 4)   # prior legal n virt w child
-        total += B * V * (4 + 1)                   # leaves, created
-        total += 2 * B * M * (4 * 6 + 1)           # node tier read + written
-    changed_root = torch.zeros_like(before.root_n, dtype=torch.bool)
-    for f in ("root_n", "root_virt", "root_w", "root_child"):
-        changed_root |= getattr(before, f) != getattr(after, f)
-    total += int(changed_root.sum()) * 4 * 4 * 2
-    rows = torch.zeros_like(before.edge_n[..., 0], dtype=torch.bool)
-    for f in ("edge_action", "edge_prior", "edge_child", "edge_n",
-              "edge_virt", "edge_w"):
-        rows |= (getattr(before, f) != getattr(after, f)).any(-1)
-    total += int(rows.sum()) * Kk * 4 * 6 * 2
-    if backup:
-        total += B * V * (4 * 5 + Kk * 8)          # pending rows
-    return total
+def bound_ms(nbytes, ops) -> tuple:
+    """The benchmark's least time (`counts.bound`) of `nbytes` bytes and
+    `ops` operations on the card, in ms, and what bounds it."""
+    seconds, by = counts.bound(nbytes, ops)
+    return seconds * 1e3, by
 
 
-def tree_ops(B, V, A, M, descend: bool, recycle: bool = True):
-    """Float/int operations of a wave's descents: the root PUCT score
-    (about 10 operations per action) and, when recycling, the victim scans
-    (about 5 per node, twice) per descent; the walk and backups are
-    negligible."""
-    if not descend:
-        return B * V * 64
-    return B * V * (10 * A + (10 * M if recycle else 0))
+def tree_fields(tree, names) -> dict:
+    return {f: getattr(tree, f) for f in names}
 
 
-def bound(nbytes, ops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def pool_bound(before, after, V, descend: bool, backup: bool,
+               recycle: bool = True) -> tuple:
+    """`bound_ms` of a pool-tier wave from `before` to `after`
+    (`counts.tree_bytes` and `counts.tree_ops`)."""
+    B, M, _ = before.edge_n.shape
+    return bound_ms(
+        counts.tree_bytes(tree_fields(before, counts.TREE_BYTES_FIELDS),
+                          tree_fields(after, counts.TREE_BYTES_FIELDS), V,
+                          descend, backup),
+        counts.tree_ops(B, V, before.root_n.shape[1], M, descend, recycle))
 
 
-def hbm_wave_work(before, after, V, descend: bool):
-    """(bytes, operations) a large-tier wave must move and do, from this
-    run's data.  Descend: 17 B per root action (prior, legal, n, virt, w)
-    read once and the chosen action's child entry per descent; the five
-    K-wide rows the pick reads (action, prior, n, virt, w) of every node the
-    walks passed, and per level the chosen slot's child entry and its mark;
-    the root marks and the links of created nodes written; the outputs.
-    About 10 operations per root action and per edge slot scored.
-    Expand+backup: the pending inputs, the installed rows, and three
-    read-modify-writes plus the node links per level walked."""
-    B, M, Kk = before.edge_n.shape
-    A = before.root_n.shape[1]
-
-    def diff(*fields):
-        out = None
-        for f in fields:
-            d = getattr(before, f) != getattr(after, f)
-            out = d if out is None else out | d
-        return out
-
-    if descend:
-        levels = int((after.edge_virt - before.edge_virt).sum())
-        rows = int(diff("edge_virt", "edge_child").any(-1).sum())
-        created = int(diff("parent", "parent_slot", "parent_action").sum())
-        root_marks = int(diff("root_virt", "root_child").sum())
-        nbytes = (B * A * (4 + 1 + 4 + 4 + 4) + B * V * 4 + root_marks * 8
-                  + rows * (Kk * 4 * 5 + 1) + levels * (4 + 4)
-                  + created * (4 + 12) + B * V * (4 + 1))
-        return nbytes, B * V * 10 * A + levels * 10 * Kk
-    installed = int(diff("expanded").sum())
-    levels = int((after.edge_n - before.edge_n).sum()
-                 + (after.root_n - before.root_n).sum())
-    nbytes = (B * V * 4 * 5 + installed * Kk * (8 + 4 * 6)
-              + levels * (12 * 2 + 12))
-    return nbytes, B * V * 16 + levels * 8 + installed * Kk * 2
+def hbm_bound(before, after, V, descend: bool) -> tuple:
+    """`bound_ms` of a large-tier wave from `before` to `after`: #8 when
+    `descend`, else #9 (`counts.hbm_wave_work`)."""
+    return bound_ms(*counts.hbm_wave_work(
+        tree_fields(before, counts.HBM_FIELDS),
+        tree_fields(after, counts.HBM_FIELDS), V, descend))
 
 
 def peaked_eval(num_actions):
@@ -754,11 +459,11 @@ def check_hbm_on_tree(mcts, params, tree, what, card, reps=3,
     runs = {
         "descend_wave_hbm": (tree, lambda t: descend_wave_hbm(t, V, **kargs),
                              lambda t: descend_wave_hbm_plain(t, V, **kargs),
-                             hbm_wave_work(tree, after_descend, V, True)),
+                             hbm_bound(tree, after_descend, V, True)),
         "expand_backup_wave_hbm": (
             after_descend, lambda t: expand_backup_wave_hbm(t, pending),
             lambda t: expand_backup_wave_hbm_plain(t, pending),
-            hbm_wave_work(after_descend, after_backup, V, False)),
+            hbm_bound(after_descend, after_backup, V, False)),
         "descend_wave": (tree,
                          lambda t: descend_wave(t, V, recycle=False, **kargs),
                          None, None),
@@ -767,20 +472,19 @@ def check_hbm_on_tree(mcts, params, tree, what, card, reps=3,
             lambda t: expand_backup_wave(t, pending, recycle=False),
             None, None),
     }
-    for name, (src, run_k, run_p, work) in runs.items():
+    for name, (src, run_k, run_p, least) in runs.items():
         t_kernel = cuda_ms(run_k, reps, src.clone)
         t_plain = cuda_ms(run_p, 1, src.clone) if run_p else None
-        t_bound, by = bound(*work) if work else (None, None)
-        out[name] = (t_kernel, t_plain, t_bound, by)
+        out[name] = (t_kernel, t_plain, *(least or (None, None)))
     out["fused_step"] = (
         launch_ms(lambda: fused_step(mcts.engine, parents, acts, live)),
         cuda_ms(lambda _: step_plain(mcts.engine, parents, acts, live), 2),
-        *bound(*fused_step_work(parents, B * V)))
+        *bound_ms(*fused_step_work(parents, B * V)))
     out["fused_step_legal"] = (
         launch_ms(lambda: step_legal(mcts.engine, parents, acts, live)),
         cuda_ms(lambda _: step_legal_plain(mcts.engine, parents, acts, live),
                 2),
-        *bound(*step_legal_work(mcts.engine, parents, B * V)))
+        *bound_ms(*step_legal_work(mcts.engine, parents, B * V)))
     down, up, chase = chain_floor(after_descend, lk, V)
     floors = {"descend_wave_hbm": down, "expand_backup_wave_hbm": up}
     log(f"time large tier ({what}) on {card}: "
@@ -892,17 +596,27 @@ def check_hbm_cases(engine, dev, card, V=P_WAVE):
         + "; ".join(seen) + f" in {time.perf_counter() - t0:.1f} s on {card}")
 
 
-def player_phase(engine, eval_fn, params, dev, card):
-    """The Player slice: default configuration at full width, root noise,
-    P_WAVES rollout waves per move, P_MOVES moves with reuse, analysis
-    and examples.  Returns (launch counts, per-move lines, rollouts/s,
-    the player, a clone of move 1's searched tree)."""
+def player_phase(ctx):
+    """5: the Player slice: one `Player` with its default configuration
+    (wave 64, K=128, a 131,072-node pool, no recycling: the large-tree
+    tier), root noise, P_WAVES rollout waves (51,200 rollouts) per move,
+    P_MOVES moves with tree reuse, analysis and examples.  Checks the root
+    counts 1 + rollouts on a fresh tree, the moves legal, the carried
+    subtree's visits after each reroot, the large-tree kernels launched
+    and the pool-tier tree kernels not; rollouts/s.  Then the path's
+    kernels again at the shapes it gave them, bitwise against their plain
+    versions and timed: both large-tree waves on move 1's searched tree
+    (their main-path shape), the fused step on that wave's 64 leaf rows
+    and on one row (as `Game.play` steps) beside the launch floor; then
+    the Player at a wider wave (`wide_wave_phase`)."""
     import torch
 
     from tak_tpu_torch.game import Game
     from tak_tpu_torch.kernels import build as kb
     from tak_tpu_torch.player import Player
 
+    engine, (eval_fn, params), dev, card = (ctx.engine, ctx.net6, ctx.dev,
+                                            ctx.card)
     game = Game.with_komi(N, 2, dev)
     for mv in ("a1", "f6"):
         game.play(mv)
@@ -916,7 +630,7 @@ def player_phase(engine, eval_fn, params, dev, card):
         fail(f"Player defaults changed: tier {player.mcts.tier}, {cfg}")
     sync()
     kb.reset_launches()
-    lines, rates = [], []
+    rates = []
     carried = 0
     def visits_on_edges(tree):
         return int(tree.edge_n.sum()) + int(tree.root_n.sum())
@@ -965,13 +679,10 @@ def player_phase(engine, eval_fn, params, dev, card):
             kept = (f"{int(player.tree.next_free[0])} nodes and {carried} "
                     "visits carried")
         rates.append((sims, sec))
-        lines.append(
-            f"Player move {i + 1} ({ptn}): {sims} rollouts in {sec:.3f} s, "
+        log(f"Player move {i + 1} ({ptn}): {sims} rollouts in {sec:.3f} s, "
             f"{sims / sec:,.0f} rollouts/s, {wave_ms:.3f} ms per wave, mean "
             f"leaf depth {depth:.2f}, {nodes} nodes; play_move (examples, "
-            f"analysis, reroot) "
-            f"{t_play * 1e3:.1f} ms, {kept}")
-        log(lines[-1] + f" on {card}")
+            f"analysis, reroot) {t_play * 1e3:.1f} ms, {kept} on {card}")
     launches = dict(kb.LAUNCHES)
     for name in HBM_TIER + ("fused_step",):
         if launches.get(name, 0) <= 0:
@@ -989,16 +700,31 @@ def player_phase(engine, eval_fn, params, dev, card):
     log(f"Player slice: {P_MOVES} moves, {rate:,.0f} rollouts/s overall, "
         f"launches {launches}, analysis {len(text)} chars, "
         f"{len(examples)} examples, on {card}")
-    return launches, lines, rate, player, searched
+    ctx.launches["player"] = launches
+    ctx.record_hbm(check_hbm_on_tree(
+        player.mcts, params, searched,
+        "the Player's own tree after move 1's search", card),
+        rows=f"player wave, {P_WAVE} rows")
+    ctx.record("fused_step", check_single_step(engine, searched, card),
+               "one row")
+    floor = launch_floor_ms(dev)
+    ctx.other["fused_step"]["launch_floor_ms"] = floor
+    log(f"time fused_step at small shapes: the Player's {P_WAVE} leaf rows "
+        f"{ctx.other['fused_step'][f'player wave, {P_WAVE} rows']['ms']:.4f}"
+        f" ms, one row {ctx.other['fused_step']['one row']['ms']:.4f} ms, "
+        f"against a launch floor of {floor:.4f} ms (zero_() on 64 int32) on "
+        f"{card}")
+    del player, searched
+    wide_wave_phase(ctx)
 
 
-def wide_wave_phase(engine, eval_fn, params, dev, card):
+def wide_wave_phase(ctx):
     """The Player at a wave of P_WIDE leaves (`-b 512` of the command
     lines), wider than the backup kernel's shared memory holds: root
     noise, P_WIDE_WAVES waves through the kernels (the root must count
     1 + rollouts), then both large-tier kernels held bitwise against their
     plain versions on that tree at V = P_WIDE and timed
-    (`check_hbm_on_tree`).  Returns those times."""
+    (`check_hbm_on_tree`)."""
     import torch
 
     from tak_tpu_torch.game import Game
@@ -1006,6 +732,8 @@ def wide_wave_phase(engine, eval_fn, params, dev, card):
     from tak_tpu_torch.mcts import tree_kernels_hbm
     from tak_tpu_torch.player import Player
 
+    engine, (eval_fn, params), dev, card = (ctx.engine, ctx.net6, ctx.dev,
+                                            ctx.card)
     game = Game.with_komi(N, 2, dev)
     for mv in ("a1", "f6"):
         game.play(mv)
@@ -1032,8 +760,9 @@ def wide_wave_phase(engine, eval_fn, params, dev, card):
         f"({sims / sec:,.0f} rollouts/s), {int(player.tree.next_free[0])} "
         f"nodes, the backup's recorded paths in a global buffer of "
         f"{scratch:,} B, on {card}")
-    return check_hbm_on_tree(player.mcts, params, player.tree,
-                             f"the Player's tree at wave {P_WIDE}", card)
+    ctx.record_hbm(check_hbm_on_tree(player.mcts, params, player.tree,
+                                     f"the Player's tree at wave {P_WIDE}",
+                                     card), f"player wave {P_WIDE}")
 
 
 def check_single_step(engine, tree, card):
@@ -1053,7 +782,7 @@ def check_single_step(engine, tree, card):
         fail("fused_step on one row did not step")
     t_kernel = launch_ms(lambda: fused_step(engine, root, act))
     t_plain = cuda_ms(lambda _: step_plain(engine, root, act), 2)
-    t_bound, by = bound(*fused_step_work(root, 1))
+    t_bound, by = bound_ms(*fused_step_work(root, 1))
     log(f"check fused_step on one row (Game.play): bitwise equal; kernel "
         f"{t_kernel:.4f} ms, plain {t_plain:.3f} ms, bound {t_bound:.7f} ms "
         f"({by}) on {card}")
@@ -1074,13 +803,15 @@ def run_entry(cmd, here, text=None, timeout=300):
     return out.stdout
 
 
-def entry_points_phase(here, card):
-    """The TEI server over pipes and the analysis command line on a PTN
-    file, as a user starts them, on the card."""
+def entry_points_phase(ctx):
+    """6: the TEI server over pipes (a dialogue up to one `bestmove`) and
+    the analysis command line on a short PTN file, as a user starts them,
+    on the card."""
     from tak_tpu_torch.engine.core import get_engine
     from tak_tpu_torch.engine.ptn import parse_ptn
     from tak_tpu_torch.game import Game
 
+    here, card = ctx.here, ctx.card
     t0 = time.perf_counter()
     out = run_entry(
         ["-m", "tak_tpu_torch.cli.tei", "random"], here,
@@ -1118,92 +849,6 @@ def entry_points_phase(here, card):
     log(f"entry point analysis_cli: 4 moves analysed, {len(text)} chars "
         f"written ({time.perf_counter() - t0:.1f} s with process start) "
         f"on {card}")
-
-
-def device_events(prof) -> list:
-    """The device-side entries of `prof.key_averages()` (kernels, copies;
-    an operator's own entry repeats the time of the kernels it launched),
-    without the program's `tak.` ranges, which the profiler mirrors on the
-    device's timeline as annotations spanning their kernels."""
-    return [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and not getattr(e, "is_user_annotation", False)
-            and not e.key.startswith("tak.")]
-
-
-def device_profile(run, what, card):
-    """Device time per kernel and the device's busy share of the wall
-    time of `run()` under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        sync()
-        wall = time.perf_counter() - t0
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    events = device_events(prof)
-    busy = sum(dev_us(e) for e in events) / 1e3
-    log(f"profile device (torch.profiler, {what}): wall "
-        f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
-        f"({100 * busy / (wall * 1e3):.1f}%), idle "
-        f"{100 - 100 * busy / (wall * 1e3):.1f}% on {card}")
-    for e in sorted(events, key=lambda e: -dev_us(e))[:15]:
-        log(f"  {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} {e.key[:90]}")
-
-
-def traced(run, what, card):
-    """`run()` under `utils.profiling.trace`: the program's table by
-    `tak.` range (calls, host self ms, device ms of the kernels launched
-    inside) for `what`."""
-    from tak_tpu_torch.utils.profiling import trace
-
-    log(f"profile ranges ({what}, on {card}):")
-    with tempfile.TemporaryDirectory() as tmp:
-        with trace(tmp, log=log):
-            run()
-
-
-def profile_search(mcts, params, root_states, card, what=None):
-    """Where one search (by default a self-play move's: 10,240 sims on 32
-    games) spends its time: once under `utils.profiling.trace` (the
-    program's spans by wave stage), once under torch.profiler."""
-    what = what or ("one self-play move's search, fused_leaf_legal="
-                    f"{mcts.config.fused_leaf_legal}")
-    tree = mcts.prepare_root(params, mcts.init_batch(root_states))
-    traced(lambda: mcts.run_sims(params, tree), what, card)
-    tree = mcts.prepare_root(params, mcts.init_batch(root_states))
-    device_profile(lambda: mcts.run_sims(params, tree), what, card)
-
-
-def profile_player(player, card, waves=200):
-    """Where `waves` Player waves on the player's current (carried) tree
-    spend their time: under `utils.profiling.trace`, then torch.profiler;
-    and what `debug()` and the reroot of `play_move` cost at this tree
-    size."""
-    player.rollout(20)
-    traced(lambda: player.rollout(waves), f"{waves} Player waves", card)
-    device_profile(lambda: player.rollout(waves),
-                   f"{waves} Player waves", card)
-    sync()
-    t0 = time.perf_counter()
-    player.debug()
-    t_debug = time.perf_counter() - t0
-    nodes = int(player.tree.next_free[0])
-    mv = player.pick_move(True)
-    sync()
-    t0 = time.perf_counter()
-    player.play_move(mv, with_info=False)
-    sync()
-    log(f"profile Player host calls at {nodes} nodes on {card}: debug() "
-        f"{t_debug * 1e3:.1f} ms, play_move without info (step + reroot) "
-        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
 
 
 def state_bytes(state) -> int:
@@ -1347,11 +992,11 @@ def check_rollout_kernels(engine, states, rng, card):
         launch_ms(lambda: legal_sampler(engine, states, seed=SEED + 7)),
         cuda_ms(lambda _: legal_sampler_plain(engine, states, seed=SEED + 7),
                 2),
-        *bound(*sampler_work(engine, states, rows, False)))
+        *bound_ms(*sampler_work(engine, states, rows, False)))
     out["legal_sampler, given words"] = (
         launch_ms(lambda: legal_sampler(engine, states, bits=bits)),
         cuda_ms(lambda _: legal_sampler_plain(engine, states, bits=bits), 2),
-        *bound(*sampler_work(engine, states, rows, True)))
+        *bound_ms(*sampler_work(engine, states, rows, True)))
     log(f"check legal_sampler: {rows} rows bitwise equal with given words "
         f"and seeded, every action legal, counts equal the dense mask's "
         f"(mean {float(got[1].float().mean()):.1f} legal actions)")
@@ -1375,7 +1020,7 @@ def check_rollout_kernels(engine, states, rng, card):
     out["env_rollout"] = (
         cuda_ms(lambda _: env_rollout(engine, start, R_STEPS, **seeded), 5),
         t_plain[1],
-        *bound(*rollout_work(engine, start, R_ENVS, R_STEPS, False)))
+        *bound_ms(*rollout_work(engine, start, R_ENVS, R_STEPS, False)))
     log(f"check env_rollout: {R_ENVS} rows x {R_STEPS} steps bitwise equal on "
         f"every field with given words and seeded ({restarted} rows "
         f"restarted a game; plain versions {t_plain[0]:.0f} / "
@@ -1467,8 +1112,10 @@ def env_rollout_phase(engine, dev, card):
     """The env rollout as a user drives it (the JAX package's
     bench.py:70-81): `Engine.env_rollout_fn(R_STEPS)` on R_ENVS fresh games
     at half-komi 4, one warm-up launch, R_LAUNCHES timed launches with
-    seeds 1.., one synchronization.  Returns (launch counts, the result
-    line, the env steps per second)."""
+    seeds 1.., one synchronization: env steps/s.  Checks that nothing but
+    the rollout kernel launched, every row ongoing, pieces and komi kept;
+    then the sampler kernel draws one action per final row, all legal.
+    Returns (launch counts, the env steps per second)."""
     import torch
 
     from tak_tpu_torch.engine.env_rollout import legal_sampler
@@ -1503,30 +1150,38 @@ def env_rollout_phase(engine, dev, card):
             and bool((total == legal.sum(1)).all())):
         fail("env rollout path: the sampler drew an illegal action")
     launches = dict(kb.LAUNCHES)
+    if launches.get("legal_sampler", 0) <= 0:
+        fail("env rollout path: the sampler kernel was not launched")
     rate = R_ENVS * R_STEPS * R_LAUNCHES / sec
-    line = (f"env rollout: {R_LAUNCHES} launches of {R_ENVS} games x "
-            f"{R_STEPS} steps in {sec * 1e3:.2f} ms, {rate:,.0f} env steps/s "
-            f"({sec * 1e3 / R_LAUNCHES:.3f} ms per launch); every row "
-            f"ongoing, pieces conserved, mean ply "
-            f"{float(states.ply.float().mean()):.1f}, "
-            f"{float(total.float().mean()):.1f} legal actions per row")
-    log(line + f"; launches {launches} on {card}")
-    return launches, line, rate
+    log(f"env rollout: {R_LAUNCHES} launches of {R_ENVS} games x {R_STEPS} "
+        f"steps in {sec * 1e3:.2f} ms, {rate:,.0f} env steps/s "
+        f"({sec * 1e3 / R_LAUNCHES:.3f} ms per launch); every row ongoing, "
+        f"pieces conserved, mean ply {float(states.ply.float().mean()):.1f}, "
+        f"{float(total.float().mean()):.1f} legal actions per row; launches "
+        f"{launches} on {card}")
+    return launches, rate
 
 
-def selfplay_phase(engine, eval_fn, params, dev, card, what, moves,
-                   check_tier=None, **search_options):
-    """The self-play slice at the reference config for `moves` searched
-    moves, `search_options` added to its SearchConfig.  Checks every
-    chosen action legal and every root's gain of exactly the searched
-    sims.  Returns (launch counts, per-move lines, sims/s over the moves
-    after the first (the only move's, if one), a clone of move 1's
-    searched tree)."""
+def env_rollout_path(ctx):
+    """6b: `env_rollout_phase`, its launches counted as the path's."""
+    ctx.launches["env_rollout"] = env_rollout_phase(ctx.engine, ctx.dev,
+                                                    ctx.card)[0]
+
+
+def selfplay_phase(ctx, what, moves, check_tier=None, **search_options):
+    """The self-play slice at the reference config (`make_actor`: 6x6, 32
+    lockstep games, 10,240 sims per move, wave 256, K=32, recycling in the
+    1280-node pool, tree reuse, the instant-win scan) with Net6 on random
+    weights in bf16 for `moves` searched moves, `search_options` added to
+    its SearchConfig.  Checks every chosen action legal and every root's
+    gain of exactly the searched sims.  Returns (launch counts, a clone of
+    move 1's searched tree, the actor's (seconds, sims) of each move)."""
     import torch
 
     from tak_tpu_torch.kernels import build as kb
     from tak_tpu_torch.types import ONGOING
 
+    engine, (eval_fn, params), dev = ctx.engine, ctx.net6, ctx.dev
     actor = make_actor(engine, eval_fn, dev, moves, **search_options)
     if check_tier is not None and actor.mcts.tier != check_tier:
         fail(f"{what} took tier {actor.mcts.tier}, not {check_tier}")
@@ -1564,27 +1219,15 @@ def selfplay_phase(engine, eval_fn, params, dev, card, what, moves,
     actor.mcts.select_moves = select_moves
     sync()
     kb.reset_launches()
-    t0 = time.perf_counter()
     examples = actor.run(params, seed=SEED, log=lambda m: log(f"  {m}"))
     sync()
-    wall = time.perf_counter() - t0
     launches = dict(kb.LAUNCHES)
     if len(actor.move_times) != moves:
         fail(f"{what} searched {len(actor.move_times)} moves, expected "
              f"{moves}")
-    move_lines = []
-    for i, ((sec, sims), games) in enumerate(zip(actor.move_times, per_move)):
-        move_lines.append(f"move {i + 1}: {sec:.3f} s, {GAMES} trees x "
-                          f"{sims} sims ({games} live games), "
-                          f"{GAMES * sims / sec:,.0f} sims/s")
-        log(f"{what}: " + move_lines[-1] + f" on {card}")
-    steady = actor.move_times[1:] or actor.move_times
-    rate = GAMES * sum(s for _, s in steady) / sum(t for t, _ in steady)
-    log(f"{what}: {moves} moves in {wall:.2f} s, {len(examples)} examples; "
-        f"{rate:,.0f} self-play sims/s over move"
-        f"{'s 2-' + str(moves) if moves > 2 else ' ' + str(moves)} on {card}")
-    log(f"launches in {what}: {launches}")
-    return launches, move_lines, rate, first_tree[0]
+    log(f"{what}: {moves} moves of {GAMES} trees x {SIMS} sims (live games "
+        f"{per_move}), {len(examples)} examples; launches {launches}")
+    return launches, first_tree[0], actor.move_times
 
 
 def selfplay_rows(engine, rng, dev):
@@ -1609,21 +1252,13 @@ def midsearch_tree(engine, eval_fn, params, roots):
     the 1,280-node pool is full in every game.  Returns (the MCTS, the
     tree, the pending wave)."""
     from tak_tpu_torch.mcts.search import MCTS
-    from tak_tpu_torch.mcts.tree_kernels import Pending
 
-    dev = roots.ply.device
-    scfg = make_actor(engine, eval_fn, dev, MOVES).search_config
+    scfg = make_actor(engine, eval_fn, roots.ply.device, MOVES).search_config
     if scfg.max_nodes != POOL or scfg.scan_chunk != 512:
         fail(f"unexpected default search config {scfg}")
     mcts = MCTS(engine, eval_fn, scfg)
     tree = mcts.prepare_root(params, mcts.init_batch(roots))
-    pending = Pending.zeros(GAMES, WAVE, K, dev)
-    waves = 0
-    while waves < 12 and not (waves >= 2 and
-                              bool((tree.next_free == POOL).all())):
-        pending = mcts._wave_pipelined(params, tree, pending)
-        waves += 1
-    sync()
+    pending, waves = grow_until_full(mcts, params, tree)
     if not bool((tree.next_free == POOL).all()):
         fail(f"pool not full after {waves} waves: {tree.next_free.tolist()}")
     log(f"tree: {waves} waves, pool full ({POOL} nodes) in all {GAMES} "
@@ -1774,58 +1409,28 @@ def describe(config) -> str:
             f"{str(config.dtype).replace('torch.', '')}")
 
 
-def learner_net5_phase(dev, card):
-    """The learner on real data: the trained Net5 and the committed 5x5
-    self-play buffer, one `Network.train` pass (56 chunks of 500: 2 steps
-    and the trailing flush) after a one-chunk warm-up call.  Returns
-    (numbers, network, weights, buffer)."""
+def learner_net5_phase(ctx):
+    """6c: the learner on real data: the trained Net5 (`runs/train5_r3`)
+    and its committed buffer of 28,215 5x5 self-play examples, one
+    `Network.train` pass (56 chunks of 500: 2 Adam steps and the trailing
+    flush) after a one-chunk, one-step call (`train_run`'s checks on
+    both)."""
     import numpy as np
 
-    from tak_tpu_torch.engine.core import get_engine
-    from tak_tpu_torch.examples import ReplayBuffer
-    from tak_tpu_torch.model.network import CHUNK_SIZE, Network
-    from tak_tpu_torch.model.resnet import NetConfig
+    from tak_tpu_torch.model.network import CHUNK_SIZE
 
-    engine = get_engine(5)
-    net = Network(engine, NetConfig.for_size(5), device=dev)
-    variables = net.load(NET5_WEIGHTS)
-    buf = ReplayBuffer()
-    t0 = time.perf_counter()
-    buf.load(engine, NET5_BUFFER)
-    t_load = time.perf_counter() - t0
-    if len(buf) != NET5_EXAMPLES:
-        fail(f"{NET5_BUFFER} holds {len(buf)} examples, not {NET5_EXAMPLES}")
-    # one chunk first, so that cuDNN has picked its algorithms
-    _, t_warm, _ = train_run(net, variables, buf.examples[:CHUNK_SIZE],
-                             np.random.default_rng(0), "Net5 warm-up",
-                             chunks_in_step=1)
-    _, wall, steps = train_run(net, variables, buf.examples,
-                               np.random.default_rng([0, 6]), "Net5 learner")
-    chunks = len(buf) // CHUNK_SIZE
+    net, variables = ctx.net5
+    examples = ctx.buffer5.examples
+    train_run(net, variables, examples[:CHUNK_SIZE],
+              np.random.default_rng(0), "Net5 one chunk", chunks_in_step=1)
+    _, _, steps = train_run(net, variables, examples,
+                            np.random.default_rng([0, 6]), "Net5 learner")
     if len(steps) != 3:
         fail(f"Net5 learner took {len(steps)} steps, not 2 + the flush")
-    rate = chunks * CHUNK_SIZE / wall
-    out = {"examples_per_s": rate, "ms_per_chunk": wall * 1e3 / chunks,
-           "parse_s": t_load}
-    log(f"learner Net5 ({describe(net.config)}) on {NET5_BUFFER}: {len(buf)} "
-        f"examples parsed in {t_load:.2f} s; warm-up (one chunk, one step) "
-        f"{t_warm:.2f} s; one pass, {chunks} chunks of {CHUNK_SIZE} x 8 rows "
-        f"(2 steps and the trailing flush), in {wall:.3f} s (prestack "
-        "included): "
-        f"{rate:,.0f} examples/s, {out['ms_per_chunk']:.2f} ms per chunk; "
-        f"every parameter changed, losses and weights finite, on {card}")
-    return out, net, variables, buf
-
-
-def forward_flops_per_row(config) -> int:
-    """Operations of one forward row: the 3x3 convolutions and the value
-    Linear (2 per multiply-add)."""
-    from tak_tpu_torch.sizes import input_channels, move_channels
-
-    n, f = config.n, config.filters
-    convs = ([(input_channels(n), f)] + [(f, f)] * (2 * config.blocks)
-             + [(f, move_channels(n))])
-    return sum(2 * 9 * n * n * ci * co for ci, co in convs) + 2 * f * n * n
+    log(f"learner Net5 ({describe(net.config)}) on {NET5_BUFFER}: one pass "
+        f"of {len(examples) // CHUNK_SIZE} chunks of {CHUNK_SIZE} x 8 rows "
+        f"(2 steps and the trailing flush) and a one-chunk call: every "
+        f"parameter changed, losses and weights finite, on {ctx.card}")
 
 
 def seeded_examples(engine, count, rng, dev):
@@ -1853,47 +1458,50 @@ def seeded_examples(engine, count, rng, dev):
     return out
 
 
-def learner_net6_phase(dev, card, rng):
-    """The learner at the reference step: the trained Net6, 20,000 seeded
-    6x6 examples, 2 optimizer steps of 20 chunks x 500 x 8 = 80,000 rows
-    (after a one-chunk warm-up call that lets cuDNN pick its algorithms).
-    Returns (numbers, network, incumbent, candidate, examples)."""
+def learn6(ctx):
+    """`train_run` of the trained Net6 on the seeded examples: 2 optimizer
+    steps of 20 chunks x 500 x 8 = 80,000 rows."""
     import numpy as np
 
-    from tak_tpu_torch.engine.core import get_engine
+    net, variables = ctx.trained6
+    return train_run(net, variables, ctx.examples6,
+                     np.random.default_rng([0, 7]), "Net6 learner")
+
+
+def learner_net6_phase(ctx):
+    """6e: the learner at the reference step: the trained Net6
+    (`runs/train6_r4/_models/1787285471.model`), 20,000 seeded 6x6
+    examples, 2 steps of 20 x 500 x 8 = 80,000 rows (`learn6`) after a
+    one-chunk call that captures the chunk's CUDA graphs; its result is
+    the pit's candidate.  Checks every BatchNorm of the 2 steps on the
+    `tak_bn_*` kernels (six launches a forward and backward) and none on
+    the plain version.  Then `batch_norm_phase`, whose times and the two
+    steps' launches make the `batch_norm` entry."""
+    import numpy as np
+
     from tak_tpu_torch.kernels import build as kb
     from tak_tpu_torch.model.batch_norm import BatchNormPlain
     from tak_tpu_torch.model.network import (
         CHUNK_SIZE,
         CHUNKS_IN_STEP,
-        Network,
     )
-    from tak_tpu_torch.model.resnet import NetConfig
 
-    engine = get_engine(6)
-    net = Network(engine, NetConfig.for_size(6), device=dev)
-    variables = net.load(NET6_WEIGHTS)
-    t0 = time.perf_counter()
-    examples = seeded_examples(engine, L6_EXAMPLES, rng, dev)
-    t_make = time.perf_counter() - t0
-    _, t_warm, _ = train_run(net, variables, examples[:CHUNK_SIZE],
-                             np.random.default_rng(0), "Net6 warm-up",
-                             chunks_in_step=1)
+    net, variables = ctx.trained6
+    train_run(net, variables, ctx.examples6[:CHUNK_SIZE],
+              np.random.default_rng(0), "Net6 warm-up", chunks_in_step=1)
     # every train-mode BatchNorm goes through the tak_bn_* kernels: six
     # launches each a chunk, and no CUDA tensor reaches the plain version
     plain_devices = []
     plain_forward = BatchNormPlain.forward
 
-    def spy(ctx, x, *rest):
+    def spy(fn_ctx, x, *rest):
         plain_devices.append(x.device.type)
-        return plain_forward(ctx, x, *rest)
+        return plain_forward(fn_ctx, x, *rest)
 
     before = dict(kb.LAUNCHES)
     BatchNormPlain.forward = staticmethod(spy)
     try:
-        new, wall, steps = train_run(net, variables, examples,
-                                     np.random.default_rng([0, 7]),
-                                     "Net6 learner")
+        ctx.candidate6, _, steps = learn6(ctx)
     finally:
         BatchNormPlain.forward = staticmethod(plain_forward)
     if len(steps) != L6_EXAMPLES // (CHUNK_SIZE * CHUNKS_IN_STEP):
@@ -1907,34 +1515,40 @@ def learner_net6_phase(dev, card, rng):
     if bn_launches != want or plain_devices:
         fail(f"Net6 learner: launches {bn_launches}, expected {want}; the "
              f"plain BatchNorm ran on {plain_devices[:3]}")
-    log(f"Net6 learner: every one of its {bns:,} BatchNorm forwards and "
-        f"backwards ran on the tak_bn_* kernels ({bn_launches}), none on "
-        "the plain version")
-    rows = CHUNKS_IN_STEP * CHUNK_SIZE * 8
-    fwd = forward_flops_per_row(net.config)
-    step_flops = 3 * fwd * rows
-    ms_step = wall * 1e3 / len(steps)
-    share = step_flops / (ms_step / 1e3) / BF16_OPS_PER_S
-    out = {"examples_per_s": L6_EXAMPLES / wall, "ms_per_step": ms_step,
-           "bf16_share": share, "step_tflop": step_flops / 1e12,
-           "bn_launches": bn_launches}
-    log(f"learner Net6 ({describe(net.config)}) at the reference step: "
-        f"{L6_EXAMPLES} seeded examples made in {t_make:.1f} s; warm-up "
-        f"(one chunk, one step) {t_warm:.2f} s; {len(steps)} steps of "
-        f"{CHUNKS_IN_STEP} x {CHUNK_SIZE} x 8 = {rows:,} rows in {wall:.3f} s "
-        f"(prestack included): {out['examples_per_s']:,.0f} examples/s, "
-        f"{ms_step:.1f} ms per step; forward {fwd / 1e6:.1f} MFLOP a row, "
-        f"a step {step_flops / 1e12:.1f} TFLOP (3 x forward), "
-        f"{100 * share:.1f}% of the bf16 peak of {BF16_OPS_PER_S / 1e12:.0f} "
-        f"TFLOP/s, on {card}")
-    return out, net, variables, new, examples
+    log(f"learner Net6 ({describe(net.config)}) at the reference step, "
+        f"{len(steps)} steps of {CHUNKS_IN_STEP} x {CHUNK_SIZE} x 8 rows: "
+        f"every one of its {bns:,} BatchNorm forwards and backwards ran on "
+        f"the tak_bn_* kernels ({bn_launches}), none on the plain version, "
+        f"on {ctx.card}")
+
+    bn = batch_norm_phase(ctx.dev, ctx.card)
+    (k_f, k_b), (p_f, p_b) = bn["kernel"], bn["plain"]
+    log(f"time batch_norm: kernels {k_f + k_b:.4f} ms (forward {k_f:.4f}, "
+        f"backward {k_b:.4f}), plain {p_f + p_b:.3f} ms, bound "
+        f"{sum(bn['bound']):.4f} ms (bytes); launches {bn_launches}, on "
+        f"{ctx.card}")
+    # train-mode BatchNorm: no TPU kernel (flax's nn.BatchNorm is XLA's)
+    ctx.entries["batch_norm"] = {
+        "name": "batch_norm", "route": "cuda",
+        "source": "tak_tpu_torch/csrc/batch_norm.cu", "replaces": None,
+        "launches": sum(bn_launches.values()),
+        "launches_by_path": {"learner_net6": bn_launches},
+        "max_bf16_steps": max(bn["err"]["y_steps"], bn["err"]["dx_steps"]),
+        "ms": k_f + k_b, "plain_ms": p_f + p_b,
+        "bound_ms": sum(bn["bound"]), "bound_by": "bytes",
+        "library_ms": None,
+        "other_shapes": {"forward": {"ms": k_f, "plain_ms": p_f,
+                                     "bound_ms": bn["bound"][0]},
+                         "backward": {"ms": k_b, "plain_ms": p_b,
+                                      "bound_ms": bn["bound"][1]}},
+    }
 
 
-def graphed_learner_phase(dev, card, variables, examples):
+def graphed_learner_phase(ctx):
     """6x: the graphed learner against the eager loop, at the reference
-    step (the trained Net6, 20 chunks of 500 x 8 rows a step, two steps,
-    one Adam state), cuDNN held to deterministic algorithms so that both
-    sides run the same kernels.  The graphed side is `Network.train` on a
+    step (the trained Net6 on 6e's 20,000 seeded examples, 20 chunks of
+    500 x 8 rows a step, two steps, one Adam state), cuDNN held to
+    deterministic algorithms so that both sides run the same kernels.  The graphed side is `Network.train` on a
     fresh network (it captures at its first chunk); the eager side is
     the same loop built from the seams on another network, its chunks
     through `_accum_chunk` on the plain module.  Tolerances (those of
@@ -1953,7 +1567,7 @@ def graphed_learner_phase(dev, card, variables, examples):
     graphed network against the same calls on two fresh networks, to the
     same limits.  Counts the captures and replays under a CPU profiler,
     and the `tak_bn_*` launches: the capturing call's include its
-    warm-up's.  Returns a summary."""
+    warm-up's."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1972,6 +1586,8 @@ def graphed_learner_phase(dev, card, variables, examples):
 
     engine = get_engine(6)
     cfg = NetConfig.for_size(6)
+    dev, card, variables = ctx.dev, ctx.card, ctx.trained6[1]
+    examples = ctx.examples6
     n_chunks = len(examples) // CHUNK_SIZE
     bns = 1 + 2 * cfg.blocks
 
@@ -2092,22 +1708,15 @@ def graphed_learner_phase(dev, card, variables, examples):
         graphed = Network(engine, cfg, device=dev)
         before = dict(kb.LAUNCHES)
         profiling.clear()
-        sync()
-        t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU]):
             got, record = graphed_call(graphed, variables, examples, 11)
             sync()
-        t_graphed = time.perf_counter() - t0
         counted = profiling.counts()
         profiling.clear()
         first = {k: v for k, v in launches_since(before).items()
                  if k.startswith("tak_bn_")}
-        eager = Network(engine, cfg, device=dev)
-        sync()
-        t0 = time.perf_counter()
-        want, ref = eager_call(eager, variables, examples, 11)
-        sync()
-        t_eager = time.perf_counter() - t0
+        want, ref = eager_call(Network(engine, cfg, device=dev), variables,
+                               examples, 11)
         losses = [(float(a), float(b)) for a, b in record["losses"]]
         want_losses = [(float(a), float(b)) for a, b in ref["losses"]]
         if len(losses) != n_chunks or len(record["grads"]) != len(
@@ -2142,9 +1751,7 @@ def graphed_learner_phase(dev, card, variables, examples):
             f"{err['bn_bias_change']:.2e}, statistics {err['stats']:.2e}; "
             f"{err['bitwise']} of {err['tensors']} returned tensors bitwise "
             f"equal; counters {counted}; tak_bn_* launches of the "
-            f"capturing call {first} ({WARMUP} warm-up chunks); "
-            f"{t_graphed:.2f} s graphed with the capture, {t_eager:.2f} s "
-            f"eager")
+            f"capturing call {first} ({WARMUP} warm-up chunks)")
         if over(err):
             fail(f"6x: the graphed learner disagrees with the eager loop: "
                  f"{over(err)}, limits {limits}")
@@ -2186,8 +1793,6 @@ def graphed_learner_phase(dev, card, variables, examples):
     finally:
         (torch.backends.cudnn.benchmark,
          torch.backends.cudnn.deterministic) = saved
-    return {"err": err, "b2b": b2b, "counters": counted,
-            "graphed_s": t_graphed, "eager_s": t_eager}
 
 
 def bf16_steps(got, want, terms):
@@ -2333,8 +1938,8 @@ def batch_norm_phase(dev, card):
     sync()
     out["host_us"] = (time.perf_counter() - t0) / 200 * 1e6
     nbytes = x.numel() * x.element_size()
-    bound = (3 * nbytes / HBM_BYTES_PER_S * 1e3,
-             5 * nbytes / HBM_BYTES_PER_S * 1e3)
+    bound = (3 * nbytes / counts.HBM_BYTES_PER_S * 1e3,
+             5 * nbytes / counts.HBM_BYTES_PER_S * 1e3)
     out["bound"] = bound
     out["err"] = err
     log(f"time BatchNorm at {rows} x {C} x {n} x {n} bf16: kernels forward "
@@ -2349,8 +1954,8 @@ def batch_norm_phase(dev, card):
     return out
 
 
-def card_vs_cpu_phase(dev, card, variables, examples):
-    """One 500-example chunk of Net5 on the card and through the port on
+def card_vs_cpu_phase(ctx):
+    """6d: one 500-example chunk of Net5 on the card and through the port on
     the CPU, the same weights and rows, TF32 off: the loss parts, the
     summed gradients and the new batch statistics, in float32 (and first
     in float64, on the chunk's first 125 examples).  Tolerances (relative
@@ -2365,7 +1970,7 @@ def card_vs_cpu_phase(dev, card, variables, examples):
         (PERF.md §6, PR 8), and the two sides differ by about that.
     The conv biases that a BatchNorm follows have a gradient of zero up to
     rounding: theirs is held, absolutely, to 1e-3 (float64: 1e-6) of the
-    largest gradient of the conv's weight.  Returns the float32 errors."""
+    largest gradient of the conv's weight."""
     import numpy as np
     import torch
 
@@ -2373,7 +1978,8 @@ def card_vs_cpu_phase(dev, card, variables, examples):
     from tak_tpu_torch.model.network import CHUNK_SIZE, Network
     from tak_tpu_torch.model.resnet import NetConfig
 
-    chunk = examples[:CHUNK_SIZE]
+    dev, card, variables = ctx.dev, ctx.card, ctx.net5[1]
+    chunk = ctx.buffer5.examples[:CHUNK_SIZE]
     saved = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
@@ -2409,7 +2015,6 @@ def card_vs_cpu_phase(dev, card, variables, examples):
         return torch.cat([g.flatten() for k, g in grads.items()
                           if not bn_led(k)])
 
-    out = {}
     try:
         # float64 on a quarter of the chunk: the host's float64 convolutions
         # are slow, and agreement to 1e-6 needs no more rows.  How far each
@@ -2460,25 +2065,24 @@ def card_vs_cpu_phase(dev, card, variables, examples):
                 f"{t_h:.2f} s on the host CPU")
             if any(v is not None and err[k] > v for k, v in limits.items()):
                 fail(f"card against CPU: the {name} training chunk disagrees")
-            out = err
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
-    return out
 
 
-def pit_phase(engine, net, incumbent, candidate, dev, card):
-    """The pit at its defaults (128 games, 800 sims, wave 16, K=128, a
-    1,602-node pool, tree reuse) cut to `max_plies` = PIT_PLIES: the first
-    Net6 learner step's candidate against the trained Net6.  Checks the
-    launch counts of #1-#4 against the config, that every game is
-    counted and that reuse carried visits.  Returns (launches, numbers,
-    the trees (with their ply and weights, and the search) that the first
-    half-batch's searches started from, from the second searched ply
-    on)."""
+def pit_phase(ctx):
+    """6f: the pit at its defaults (128 games, 800 sims, wave 16, K=128, a
+    1,602-node pool, tree reuse) cut to `max_plies` = PIT_PLIES, its only
+    cut: 6e's candidate against the trained Net6; plies/s and ms per
+    half-batch search.  Checks the launch counts of #1-#4 against the
+    config, that every game is counted and that reuse carried visits.
+    Then the pool-tier kernels at the pit's shape on the trees its
+    searches started from (`pit_kernels_phase`)."""
     from tak_tpu_torch import pit as pit_mod
     from tak_tpu_torch.kernels import build as kb
     from tak_tpu_torch.mcts.search import MCTS
+
+    (net, incumbent), card = ctx.trained6, ctx.card
 
     cfg = pit_mod.PitConfig(max_plies=PIT_PLIES)
     opening = 2 + cfg.random_plies
@@ -2505,10 +2109,10 @@ def pit_phase(engine, net, incumbent, candidate, dev, card):
         kb.reset_launches()
         sync()
         t0 = time.perf_counter()
-        result = pit_mod.pit(engine, net.policy_eval_states, candidate,
-                             incumbent, cfg, seed=SEED,
+        result = pit_mod.pit(ctx.engine, net.policy_eval_states,
+                             ctx.candidate6, incumbent, cfg, seed=SEED,
                              log=lambda m: log(f"  {m}"), stats=stats,
-                             device=dev)
+                             device=ctx.dev)
         sync()
         wall = time.perf_counter() - t0
         launches = dict(kb.LAUNCHES)
@@ -2532,18 +2136,18 @@ def pit_phase(engine, net, incumbent, candidate, dev, card):
     total = result.wins + result.losses + result.draws + result.unfinished
     if total != cfg.games or stats["carried_n0"] <= 0:
         fail(f"pit result {result} or carried visits {stats} malformed")
-    out = {"plies_per_s": plies / wall,
-           "game_plies_per_s": plies * cfg.games / wall,
-           "ms_per_search": 1e3 * sum(search_s) / S, "wall_s": wall}
     log(f"pit (Net6 candidate vs trained Net6, {cfg.games} games, "
         f"{cfg.search.num_sims} sims, wave {cfg.search.wave_size}, K "
         f"{cfg.search.max_children}, {captured['mcts'].config.max_nodes}-node "
         f"pool, tree reuse; cut: max_plies {PIT_PLIES}): {result}, "
         f"carried_n0 {stats['carried_n0']}; {plies} plies in {wall:.2f} s: "
-        f"{out['plies_per_s']:.2f} lockstep plies/s ({out['game_plies_per_s']:,.0f} "
-        f"game plies/s), {out['ms_per_search']:.1f} ms per half-batch search "
-        f"({cfg.games // 2} games x {cfg.search.num_sims} sims) on {card}")
-    return launches, out, captured
+        f"{plies / wall:.2f} lockstep plies/s ({plies * cfg.games / wall:,.0f}"
+        f" game plies/s), {1e3 * sum(search_s) / S:.1f} ms per half-batch "
+        f"search ({cfg.games // 2} games x {cfg.search.num_sims} sims) on "
+        f"{card}")
+    ctx.launches["pit"] = launches
+    ctx.record_pool(*pit_kernels_phase(captured, card),
+                    "pit, B=64 K=128 M=1602 V=16")
 
 
 def grow_pipelined(mcts, params, tree, waves, pending=None):
@@ -2558,6 +2162,18 @@ def grow_pipelined(mcts, params, tree, waves, pending=None):
         pending = mcts._wave_pipelined(params, tree, pending)
     sync()
     return pending
+
+
+def grow_until_full(mcts, params, tree, pending=None):
+    """Pipelined waves of `mcts`'s search on `tree` (in place, from
+    `pending`) until its pool is full in every game: at least 2, at most
+    12.  Returns (the pending wave, the waves run)."""
+    waves, M = 0, tree.edge_n.shape[1]
+    while waves < 12 and not (waves >= 2 and
+                              bool((tree.next_free == M).all())):
+        pending = grow_pipelined(mcts, params, tree, 1, pending)
+        waves += 1
+    return pending, waves
 
 
 def pool_kernel_runs(mcts, tree, pending):
@@ -2611,30 +2227,29 @@ def hold_pool_kernels(mcts, tree, pending, what):
     return checks
 
 
-def time_pool_kernels(mcts, tree, pending, checks):
-    """#2, #4 and #3 on `tree` and its pending wave: the kernel (`launch_ms`
-    over fresh copies of the tree), its plain version, its bound and chain
-    floor.  Returns ({kernel: (ms, plain ms, bound ms, bound by)},
-    {kernel: floor ms}, a description of the chase)."""
+def time_pool_kernels(mcts, tree, pending, checks, reps=None):
+    """#2, #4 and #3 on `tree` and its pending wave: the kernel over fresh
+    copies of the tree (back to back, `launch_ms`; with `reps`, each
+    launch alone behind a spin, `cuda_ms`), its plain version, its bound
+    and chain floor.  Returns ({kernel: (ms, plain ms, bound ms, bound
+    by)}, {kernel: floor ms}, a description of the chase)."""
     from tak_tpu_torch.mcts.tree_kernels import backup_descend_wave
 
     runs, zero, kargs = pool_kernel_runs(mcts, tree, pending)
-    B, M, K = tree.edge_n.shape
-    A = tree.root_n.shape[1]
     V = mcts.config.wave_size
     times = {}
     for name, (run_k, run_p, descend, backup) in runs.items():
-        copies = iter([tree.clone() for _ in range(20)])
         if name == "descend_wave":   # its empty pending wave made beforehand
-            t_kernel = launch_ms(lambda: backup_descend_wave(
-                next(copies), zero, **kargs))
+            run_k = lambda t: backup_descend_wave(t, zero, **kargs)  # noqa: E731
+        if reps:
+            t_kernel = cuda_ms(run_k, reps, tree.clone)
         else:
+            copies = iter([tree.clone() for _ in range(20)])
             t_kernel = launch_ms(lambda: run_k(next(copies)))
-        del copies
-        t_plain = cuda_ms(run_p, 1, lambda: tree.clone())
-        times[name] = (t_kernel, t_plain, *bound(
-            tree_bytes(tree, checks[name][0], V, descend, backup),
-            tree_ops(B, V, A, M, descend, recycle=kargs["recycle"])))
+            del copies
+        t_plain = cuda_ms(run_p, 1, tree.clone)
+        times[name] = (t_kernel, t_plain, *pool_bound(
+            tree, checks[name][0], V, descend, backup, kargs["recycle"]))
     floors, chase = pool_chain_floors(tree, pending, checks, V)
     return times, floors, chase
 
@@ -2687,24 +2302,19 @@ def pit_kernels_phase(captured, card):
     return times, floors
 
 
-def captured_pool_phase(mcts, params, tree, what, card):
+def captured_pool_phase(ctx, mcts, params, tree, what):
     """The pool-tier kernels on a tree captured from a path's own search
     (a copy taken as a search call began, carried by reuse): grown by that
     search's pipelined waves until the recycled pool is full in every game
     (at least 2 waves, at most 12), then #2, #4 and #3 held bitwise
-    against their plain versions on it and timed beside their bound.
-    Returns (a shape label, {kernel: (ms, plain ms, bound ms, bound by)},
-    {kernel: floor ms})."""
+    against their plain versions on it and timed beside their bound and
+    chain floor, recorded under `what` and the shape."""
     B, M, K = tree.edge_n.shape
     A = tree.root_n.shape[1]
     V = mcts.config.wave_size
     carried = int(tree.n0.sum())
     tree = tree.clone()
-    pending, waves = None, 0
-    while waves < 12 and not (waves >= 2 and
-                              bool((tree.next_free == M).all())):
-        pending = grow_pipelined(mcts, params, tree, 1, pending)
-        waves += 1
+    pending, waves = grow_until_full(mcts, params, tree)
     if mcts.config.recycle and not bool((tree.next_free == M).all()):
         fail(f"{what}: pool not full after {waves} waves")
     label = f"{what}, B={B} K={K} M={M} V={V} A={A}"
@@ -2713,12 +2323,12 @@ def captured_pool_phase(mcts, params, tree, what, card):
     log(f"check and time pool tier at the {label} ({carried} root visits "
         f"carried by reuse, then {waves} pipelined waves, pool full): #2, #4 "
         f"and #3 bitwise equal to the plain versions; "
-        + pool_times_line(times, floors) + f"; {chase} on {card}")
-    return label, times, floors
+        + pool_times_line(times, floors) + f"; {chase} on {ctx.card}")
+    ctx.record_pool(times, floors, label)
 
 
-def train_cli_phase(here, card):
-    """The generation loop through its command line, as subprocesses, in
+def train_cli_phase(ctx):
+    """6g: the generation loop through its command line, as subprocesses, in
     a temporary workdir: two generations from the trained Net6, then
     `--resume` to a third.  Full width (16 x 128); cut: 4 self-play games
     of 256 rollouts, 4 pit games of 64 rollouts, chunks of 50 and 4 chunks
@@ -2729,6 +2339,7 @@ def train_cli_phase(here, card):
     from tak_tpu_torch.model.resnet import NetConfig
     from tak_tpu_torch.utils.checkpoint import load_run
 
+    here, card = ctx.here, ctx.card
     with tempfile.TemporaryDirectory() as tmp:
         cmd = ["-m", "tak_tpu_torch.cli.train", NET6_WEIGHTS, "--size", "6",
                "--games", "4", "--workers", "4", "--rollouts", "256",
@@ -2777,98 +2388,6 @@ def train_cli_phase(here, card):
         f"{t2 - t1:.1f} s (process start included); {'; '.join(gates)}; "
         f"checkpoint read back at generation 3 with {lines} examples, on "
         f"{card}")
-    return t2 - t0
-
-
-def profile_learner_step(net, variables, examples, card):
-    """Where one Net6 optimizer step (a `Network.train` call on 20 chunks
-    of 500 x 8 rows) spends its time: under `utils.profiling.trace` (the
-    program's spans by prestack, chunk assembly, forward and backward,
-    step); one BatchNorm's forward and backward at a chunk's shape (CUDA
-    events) times the step's BatchNorms; then torch.profiler's device
-    time by kernel family and the device's idle share."""
-    import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from tak_tpu_torch.model.batch_norm import BatchNormPlain
-    from tak_tpu_torch.model.network import CHUNK_SIZE, CHUNKS_IN_STEP
-    from tak_tpu_torch.model.resnet import BatchNorm
-
-    part = examples[:CHUNK_SIZE * CHUNKS_IN_STEP]
-
-    def step():
-        net.train(variables, part, rng=np.random.default_rng(0),
-                  log=lambda *a, **k: None)
-        sync()
-
-    step()
-    t0 = time.perf_counter()
-    step()
-    wall = time.perf_counter() - t0
-    traced(step, "one Net6 optimizer step", card)
-
-    bn = BatchNorm(net.config.filters).to(net.device).train()
-    n = net.config.n
-    x = torch.randn((CHUNK_SIZE * 8, net.config.filters, n, n),
-                    device=net.device, dtype=net.config.dtype)
-    xl = x.to(memory_format=torch.channels_last).requires_grad_()
-    ms = cuda_ms(lambda _: bn(xl).float().sum().backward(), 5)
-
-    def plain(_):
-        BatchNormPlain.apply(xl, bn.weight, bn.bias, bn.running_mean,
-                             bn.running_var, None).float().sum().backward()
-
-    ms_plain = cuda_ms(plain, 5)
-    count = 1 + 2 * net.config.blocks
-    log(f"profile BatchNorm (CUDA events): one forward + backward at "
-        f"{tuple(x.shape)} {net.config.dtype}, channels-last as in training, "
-        f"{ms:.3f} ms (the plain Function {ms_plain:.3f} ms); x {count} "
-        f"BatchNorms x {CHUNKS_IN_STEP} chunks = "
-        f"{ms * count * CHUNKS_IN_STEP:.1f} ms of "
-        f"the step's {wall * 1e3:.1f} ms; its least time from bytes (bf16: "
-        f"forward reads x twice and writes y, backward reads dy and x twice "
-        f"and writes dx) {8 * x.numel() * 2 / HBM_BYTES_PER_S * 1e3:.3f} ms, "
-        f"on {card}")
-
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        wall = time.perf_counter() - t0
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    def family(name):
-        """A device kernel's family, from cuDNN's and PyTorch's names."""
-        if "fprop" in name:
-            return "convolutions, forward"
-        if "dgrad" in name or "wgrad" in name:
-            return "convolutions, backward (data and weight gradients)"
-        if any(w in name for w in ("conv", "xmma", "cudnn", "gemm",
-                                   "cutlass", "implicit", "winograd")):
-            return "other convolution and matrix-product kernels"
-        if "multi_tensor" in name:
-            return "Adam (multi-tensor)"
-        return "other kernels (BatchNorm, loss, observe, symmetry, copies)"
-
-    families = collections.defaultdict(float)
-    events = device_events(prof)
-    for e in events:
-        families[family(e.key.lower())] += dev_us(e) / 1e3
-    busy = sum(families.values())
-    log(f"profile device (torch.profiler, one Net6 optimizer step): wall "
-        f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms, idle "
-        f"{100 - 100 * busy / (wall * 1e3):.1f}% on {card}")
-    for fam, ms_f in sorted(families.items(), key=lambda kv: -kv[1]):
-        log(f"  {ms_f:9.2f} ms  {fam}")
-    top = sorted(events, key=lambda e: -dev_us(e))[:12]
-    for e in top:
-        log(f"  {dev_us(e) / 1e3:9.2f} ms  x{e.count:<6d} "
-            f"[{family(e.key.lower()).split(' (')[0]}] {e.key[:80]}")
 
 
 # ---------------------------------------------------------------------------
@@ -2935,17 +2454,18 @@ def recycle_invariants(tree, sims, what):
     return int(attached.sum())
 
 
-def xla_v1_phase(engine, net6_eval, params6, roots, card):
-    """The "xla" path against the pool-tier kernels at V = 1 (the card's
-    counterpart of `tests/test_recycle.py:207`): the same GAMES roots,
-    6x6, K=32, a recycled X1_POOL-node pool that evicts, the trained Net6
-    in bf16, X1_SIMS waves of one descent; the two trees must be equal in
-    every field, node states, `root_w` and `edge_w` included.  Returns
-    the launch counts of both searches."""
-    import torch
-
+def xla_v1_phase(ctx):
+    """6h: the "xla" path against the pool-tier kernels at V = 1 (the
+    card's counterpart of `tests/test_recycle.py:207`): the 32 mid-game
+    roots, 6x6, K=32, a recycled X1_POOL-node pool that evicts (full in
+    every game), the trained Net6 in bf16, X1_SIMS waves of one descent;
+    the two trees must be equal in every field, node states, `root_w` and
+    `edge_w` included; the launches of both from the config."""
     from tak_tpu_torch.kernels import build as kb
     from tak_tpu_torch.mcts.search import MCTS, SearchConfig
+
+    (net6, params6), roots = ctx.trained6, ctx.rows[1]
+    engine, net6_eval, card = ctx.engine, net6.policy_eval_states, ctx.card
 
     trees, secs, counts = {}, {}, {}
     for backend in ("pallas", "xla"):
@@ -2985,9 +2505,8 @@ def xla_v1_phase(engine, net6_eval, params6, roots, card):
         f"included); xla {secs['xla']:.2f} s, pool tier "
         f"{secs['pallas']:.2f} s; launches xla {counts['xla']}, pool tier "
         f"{counts['pallas']} on {card}")
-    total = collections.Counter(counts["xla"]) + collections.Counter(
-        counts["pallas"])
-    return dict(total)
+    ctx.launches["xla_v1"] = dict(collections.Counter(counts["xla"])
+                                  + collections.Counter(counts["pallas"]))
 
 
 def graph_descent_phase(mcts, tree, what, card, gumbel=None):
@@ -2996,8 +2515,7 @@ def graph_descent_phase(mcts, tree, what, card, gumbel=None):
     off, as on the CPU): one wave's descents from `tree` (with `gumbel`,
     the Gumbel root pick) must leave bitwise-equal trees, leaves and
     created flags, in the capturing call and in a replay on the tree
-    reset in the captured storage.  Both modes are timed on that tree.
-    Returns (graph ms, eager ms) for one wave's descents."""
+    reset in the captured storage.  Both modes are timed on that tree."""
     from tak_tpu_torch.mcts.tree import TENSOR_FIELDS
 
     def descend(t):
@@ -3031,43 +2549,37 @@ def graph_descent_phase(mcts, tree, what, card, gumbel=None):
         f"leaves and created flags bitwise equal when capturing and "
         f"replayed; graph {graph_ms:.1f} ms (capturing {capture_ms:.1f} "
         f"ms), eager {eager_ms:.1f} ms on {card}")
-    return graph_ms, eager_ms
 
 
-def xla_selfplay_phase(engine, eval_fn, params, dev, card, pool_rate):
-    """Self-play on the "xla" path at the reference config for one searched
-    move (`backend="xla"`: 32 games, 10,240 sims, wave 256, K=32, the
-    recycled 1,280-node pool): the tier, visit conservation and the
-    recycling invariants of the searched trees, sims/s and ms per wave
-    beside the pool tier's sims/s of this run; then the descent's CUDA
-    graphs against the eager descent on move 1's searched tree."""
+def xla_selfplay_phase(ctx):
+    """6i: self-play on the "xla" path at the reference config for one
+    searched move (`backend="xla"`: 32 games, 10,240 sims, wave 256, K=32,
+    the recycled 1,280-node pool): the tier, visit conservation and the
+    recycling invariants of `tests/test_recycle.py` on every searched
+    tree, only leaf steps launched; sims/s and ms per wave.  Then the
+    descent's CUDA graphs against the eager descent on move 1's searched
+    tree."""
     from tak_tpu_torch.mcts.search import MCTS
 
-    launches, lines, _, tree = selfplay_phase(
-        engine, eval_fn, params, dev, card, "self-play on the xla path", 1,
-        backend="xla", check_tier="xla")
+    launches, tree, move_times = selfplay_phase(
+        ctx, "self-play on the xla path", 1, backend="xla",
+        check_tier="xla")
     nodes = recycle_invariants(tree, SIMS, "xla self-play tree")
-    mcts = MCTS(engine, eval_fn, make_actor(engine, eval_fn, dev, 1,
+    engine, eval_fn = ctx.engine, ctx.net6[0]
+    mcts = MCTS(engine, eval_fn, make_actor(engine, eval_fn, ctx.dev, 1,
                                             backend="xla").search_config)
-    graph_ms, eager_ms = graph_descent_phase(
-        mcts, tree, "move 1's searched tree", card)
-    waves = SIMS // WAVE
-    sec = float(lines[0].split(": ")[1].split(" s,")[0])
-    rate = GAMES * SIMS / sec
-    want = {"fused_step"}
-    if set(launches) != want:
+    graph_descent_phase(mcts, tree, "move 1's searched tree", ctx.card)
+    if set(launches) != {"fused_step"}:
         fail(f"xla self-play launched {launches}: the search should launch "
              "only leaf steps (the win scan and the move tail step too)")
-    out = {"sims_per_s": rate, "ms_per_wave": 1e3 * sec / waves,
-           "pool_sims_per_s": pool_rate, "descent_graph_ms": graph_ms,
-           "descent_eager_ms": eager_ms}
+    waves = SIMS // WAVE
+    sec = move_times[0][0]
     log(f"xla path at the reference self-play config: {GAMES} games x "
         f"{SIMS} sims, {waves} waves of {WAVE}, one move in {sec:.2f} s: "
-        f"{rate:,.0f} sims/s, {out['ms_per_wave']:.1f} ms per wave (the pool "
-        f"tier: {pool_rate:,.0f} sims/s, {pool_rate / rate:.1f} times as "
-        f"fast); {nodes} attached nodes, invariants hold; launches "
-        f"{launches} on {card}")
-    return launches, out
+        f"{GAMES * SIMS / sec:,.0f} sims/s, {1e3 * sec / waves:.1f} ms per "
+        f"wave; {nodes} attached nodes, invariants hold; launches "
+        f"{launches} on {ctx.card}")
+    ctx.launches["xla"] = launches
 
 
 def sequential_halving_visits(seq):
@@ -3083,8 +2595,8 @@ def sequential_halving_visits(seq):
     return sorted(have.elements(), reverse=True)
 
 
-def gumbel_phase(engine, eval_fn, params, dev, card):
-    """Gumbel self-play at the reference config with gumbel_m=16, cut to
+def gumbel_phase(ctx):
+    """6j: Gumbel self-play at the reference config with gumbel_m=16, cut to
     GUMBEL_MOVES searched moves: the tier, the root visits of move 1's
     fresh trees against the sequential-halving schedule, targets summing
     to 65535 within the rounding of their entries, legal moves; sims/s;
@@ -3095,6 +2607,8 @@ def gumbel_phase(engine, eval_fn, params, dev, card):
     from tak_tpu_torch.kernels import build as kb
     from tak_tpu_torch.types import ONGOING
 
+    engine, (eval_fn, params), dev, card = (ctx.engine, ctx.net6, ctx.dev,
+                                            ctx.card)
     actor = make_actor(engine, eval_fn, dev, GUMBEL_MOVES, gumbel_m=16)
     if actor.mcts.tier != "xla":
         fail(f"gumbel self-play took tier {actor.mcts.tier}")
@@ -3155,11 +2669,11 @@ def gumbel_phase(engine, eval_fn, params, dev, card):
         + f"; move 1's {GAMES} fresh roots hold the schedule's visits "
         f"({implied[:4]}...); {len(searched)} examples, targets sum to "
         f"65535 within rounding (A={A}); launches {launches} on {card}")
-    return launches, {"sims_per_s": rates[-1], "move_s": times}
+    ctx.launches["gumbel"] = launches
 
 
-def quad_phase(engine, eval_fn, params, dev, card):
-    """Sequential quad-rollout self-play (workers=1, quad_rollout_plies=6,
+def quad_phase(ctx):
+    """6k: sequential quad-rollout self-play (workers=1, quad_rollout_plies=6,
     the reference search config), cut to QUAD_PLIES plies: the #1-#4
     launches of every search call from the config (4 calls a move below
     ply 6), each early move's search adding 4x the root visits of a late
@@ -3170,6 +2684,8 @@ def quad_phase(engine, eval_fn, params, dev, card):
     from tak_tpu_torch.mcts.search import SearchConfig
     from tak_tpu_torch.selfplay import SelfPlayActor, SelfPlayConfig
 
+    engine, (eval_fn, params), dev, card = (ctx.engine, ctx.net6, ctx.dev,
+                                            ctx.card)
     actor = SelfPlayActor(engine, eval_fn, SelfPlayConfig(
         games=1, workers=1, max_plies=QUAD_PLIES, quad_rollout_plies=6,
         search=SearchConfig(num_sims=SIMS, wave_size=WAVE, max_children=K,
@@ -3231,29 +2747,26 @@ def quad_phase(engine, eval_fn, params, dev, card):
         f"included) early {early}, late {late}; "
         f"{rate:,.0f} sims/s ({wall:.2f} s in all); launches {launches} on "
         f"{card}")
-    shape = captured_pool_phase(mcts, params, captured[0],
-                                "quad search's shape", card)
-    return launches, {"sims_per_s": rate}, shape
+    ctx.launches["quad"] = launches
+    captured_pool_phase(ctx, mcts, params, captured[0], "quad search's shape")
 
 
-def dense_net5_phase(dev, card):
-    """The dense Net5 head (5x5, 8 x 128, 1,575 legacy moves, weights from
+def dense_net5_phase(ctx):
+    """6l: the dense Net5 head (5x5, 8 x 128, 1,575 legacy moves, weights from
     a seed): the card's float32 forward against the CPU's (TF32 off), a
     pool-tier self-play search of 2 moves with its kernel counts, one
     `Network.train` pass over the committed 5x5 buffer; examples/s.  Then
     #2-#4 at this 5x5 shape (`captured_pool_phase`), on the tree that
     move 2's search started from."""
-    import dataclasses
-
     import numpy as np
     import torch
 
     from tak_tpu_torch.engine.core import get_engine
-    from tak_tpu_torch.examples import ReplayBuffer
     from tak_tpu_torch.kernels import build as kb
     from tak_tpu_torch.model.network import CHUNK_SIZE, Network
     from tak_tpu_torch.model.resnet import NetConfig
 
+    dev, card, buf = ctx.dev, ctx.card, ctx.buffer5
     engine = get_engine(5)
     cfg = NetConfig(n=5, filters=128, blocks=8, policy_head="dense")
     if cfg.policy_size != 1575:
@@ -3313,20 +2826,14 @@ def dense_net5_phase(dev, card):
     sync()
     wall = time.perf_counter() - t0
     launches = dict(kb.LAUNCHES)
-    scfg = actor.search_config
-    chunk = -(-scfg.scan_chunk // scfg.wave_size)
-    chunks = -(-scfg.num_waves // chunk)
     moves = len(actor.move_times)
-    want = {"descend_wave": moves * chunks, "expand_backup_wave":
-            moves * chunks, "backup_descend_wave": moves * chunks * (chunk - 1)}
+    want = pool_search_launches(actor.search_config, moves)
     if moves != DENSE_MOVES or any(launches.get(k) != v
                                    for k, v in want.items()):
         fail(f"dense-head search: {moves} moves, launches {launches}, want "
              f"{want}")
     rate = GAMES * SIMS * moves / sum(t for t, _ in actor.move_times)
 
-    buf = ReplayBuffer()
-    buf.load(engine, NET5_BUFFER)
     _, t_warm, _ = train_run(net, variables, buf.examples[:CHUNK_SIZE],
                              np.random.default_rng(0), "dense Net5 warm-up",
                              chunks_in_step=1)
@@ -3341,10 +2848,9 @@ def dense_net5_phase(dev, card):
         f"`Network.train` pass over {NET5_BUFFER} ({len(buf)} examples, "
         f"{chunks_done} chunks, {len(steps)} steps) in {t_train:.3f} s: "
         f"{ex_rate:,.0f} examples/s (warm-up {t_warm:.2f} s) on {card}")
-    shape = captured_pool_phase(mcts, variables, captured[0],
-                                "dense Net5 search's shape (5x5)", card)
-    return launches, {"examples_per_s": ex_rate, "sims_per_s": rate,
-                      "err_logp": err_p, "err_value": err_v}, shape
+    ctx.launches["dense_net5"] = launches
+    captured_pool_phase(ctx, mcts, variables, captured[0],
+                        "dense Net5 search's shape (5x5)")
 
 
 class ScriptedPlaytakServer:
@@ -3414,8 +2920,8 @@ class ScriptedPlaytakServer:
             self.listener.close()
 
 
-def bot_phase(engine, net6, params6, dev, card):
-    """The playtak bot over a local scripted server (127.0.0.1): the
+def bot_phase(ctx):
+    """6m: the playtak bot over a local scripted server (127.0.0.1): the
     trained Net6, the `Player` at its defaults (wave 64, K=128, 131,072
     nodes), time_to_think BOT_THINK_S, pondering while the server waits.
     Checks the lines the server received, at least two ponder ticks, the
@@ -3426,6 +2932,8 @@ def bot_phase(engine, net6, params6, dev, card):
     from tak_tpu_torch.playtak.bot import BotConfig, PlaytakBot
     from tak_tpu_torch.playtak.protocol import TcpTransport
 
+    engine, (net6, params6), dev, card = (ctx.engine, ctx.trained6, ctx.dev,
+                                          ctx.card)
     work = Path(tempfile.mkdtemp(prefix="playtak_"))
     thinks, ponders = [], []
 
@@ -3503,20 +3011,19 @@ def bot_phase(engine, net6, params6, dev, card):
              "moves, or results not the server's 0-R")
     waves = thinks + ponders
     ms_wave = 1e3 * sum(t for _, t in waves) / len(waves)
-    out = {"rollouts_per_think": sum(think_counts) / len(think_counts),
-           "ms_per_wave": ms_wave, "ponder_ticks": len(ponders)}
     log(f"playtak bot over a scripted local server ({N}x{N}, the trained "
         f"Net6, Player defaults, time_to_think {BOT_THINK_S} s): "
         f"{server.plies} plies in {wall:.2f} s, lines {server.received}; "
         f"rollouts per think {think_counts} (mean "
-        f"{out['rollouts_per_think']:,.0f}), {len(ponders)} ponder ticks, "
-        f"{ms_wave:.2f} ms per wave; analysis {len(text)} chars, "
-        f"{len(buf)} examples read back; launches {launches} on {card}")
-    return launches, out
+        f"{sum(think_counts) / len(think_counts):,.0f}), {len(ponders)} "
+        f"ponder ticks, {ms_wave:.2f} ms per wave; analysis {len(text)} "
+        f"chars, {len(buf)} examples read back; launches {launches} on "
+        f"{card}")
+    ctx.launches["bot"] = launches
 
 
-def native_replay_phase(engine, dev, card):
-    """NATIVE_GAMES seeded random playouts on the native C++ engine
+def native_replay_phase(ctx):
+    """6n: NATIVE_GAMES seeded random playouts on the native C++ engine
     (`tak_tpu_torch.native`), their moves replayed through the port's
     batched step on the card (kernel #1): results, plies, reserves and
     boards (heights, tops, every stack level) must be equal."""
@@ -3526,6 +3033,7 @@ def native_replay_phase(engine, dev, card):
     from tak_tpu_torch import native
     from tak_tpu_torch.kernels import build as kb
 
+    engine, dev, card = ctx.engine, ctx.dev, ctx.card
     if not native.available():
         fail("the native takcore library does not load or build here")
     rng = np.random.default_rng(SEED)
@@ -3583,7 +3091,7 @@ def native_replay_phase(engine, dev, card):
         f"replayed through the batched step on the card ({T} launches of "
         f"#1 in {t_card:.3f} s): results, plies, reserves and boards equal "
         f"on {card}")
-    return launches
+    ctx.launches["native_replay"] = launches
 
 
 # ---------------------------------------------------------------------------
@@ -3685,15 +3193,17 @@ def sharded_rank(rank, out_path):
                        "sims": real.move_times[-1][1]}, f)
 
 
-def sharded_phase(card):
+def sharded_phase(ctx):
     """6o: two ranks on the one card over an explicit gloo group (NCCL
     refuses two ranks on one device): `dryrun_multichip(2, "cuda")` at
-    flagship shapes, then `sharded_rank`.  Returns rank 0's launches of
-    the exact-evaluator move and the numbers."""
+    flagship shapes, then `sharded_rank`, whose rank 0's launches of the
+    exact-evaluator move are the path's."""
     import torch
 
     from tak_tpu_torch.graft_entry import dryrun_multichip
     from tak_tpu_torch.parallel.mesh import spawn_local
+
+    card = ctx.card
 
     torch.cuda.empty_cache()     # the ranks share the card with this process
     t0 = time.perf_counter()
@@ -3729,7 +3239,7 @@ def sharded_phase(card):
         f"{GAMES * out['sims'] / second:,.0f} sims/s on a SHARED card (two "
         f"processes time-slice one H100: not a scaling figure); "
         f"{t_move:.1f} s with process start, on {card}")
-    return out["launches"], out
+    ctx.launches["sharded_rank0"] = out["launches"]
 
 
 def nccl_rank(rank, out_path):
@@ -3796,9 +3306,11 @@ def nccl_rank(rank, out_path):
         json.dump(out, f)
 
 
-def nccl_phase(card):
+def nccl_phase(ctx):
     """6p: `nccl_rank` in a subprocess of its own (world size 1)."""
     from tak_tpu_torch.parallel.mesh import spawn_local
+
+    card = ctx.card
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "rank0.json")
@@ -3817,7 +3329,7 @@ def nccl_phase(card):
         f"{out['move_mesh_s']:.3f} s with, examples and chosen moves bitwise "
         f"equal, launches {out['launches']} (cuDNN deterministic; "
         f"{wall:.1f} s with process start), on {card}")
-    return out["launches"], out
+    ctx.launches["nccl_world1"] = out["launches"]
 
 
 WARMUP_STAGES = ("build kernels", "masked_step", "wins_in_one", "legal_mask",
@@ -3828,17 +3340,18 @@ WARMUP_STAGES = ("build kernels", "masked_step", "wins_in_one", "legal_mask",
                  "pit run_sims", "pit select_moves", "pit step", "total")
 
 
-def warmup_trace_phase(here, engine, eval_fn, params, dev, card):
+def warmup_trace_phase(ctx):
     """6q: `python -m tak_tpu_torch.cli.warmup` at the reference self-play
     config, Net6 and the pit at its defaults, every stage name printed;
     then `utils.profiling.trace` around one self-play move, whose Chrome
     trace must name the pool-tier kernels (#2 and #4 share
-    `backup_descend_kernel`, #3 is `expand_backup_kernel`).  Returns the
-    stage times and the trace's kernel counts."""
+    `backup_descend_kernel`, #3 is `expand_backup_kernel`)."""
     import re
 
     from tak_tpu_torch.kernels import build as kb
     from tak_tpu_torch.utils.profiling import trace
+
+    here, card = ctx.here, ctx.card
 
     t0 = time.perf_counter()
     out = run_entry(["-m", "tak_tpu_torch.cli.warmup", "--size", str(N),
@@ -3857,7 +3370,8 @@ def warmup_trace_phase(here, engine, eval_fn, params, dev, card):
         f"defaults): " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
         + f"; {wall:.1f} s with process start, on {card}")
 
-    actor = make_actor(engine, eval_fn, dev, 1)
+    eval_fn, params = ctx.net6
+    actor = make_actor(ctx.engine, eval_fn, ctx.dev, 1)
     kb.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp, log=lambda *_: None):
@@ -3880,7 +3394,6 @@ def warmup_trace_phase(here, engine, eval_fn, params, dev, card):
     log(f"6q trace of one self-play move: {len(events)} events, kernel "
         f"events {dict(kernels)} against launches {want} of #2/#4 and #3, "
         f"on {card}")
-    return stages, dict(kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -3921,7 +3434,7 @@ def probe_policy_checks(engine, mcts, tree, states, policy, what):
     return sims
 
 
-def quality_phase(here, dev, card):
+def quality_phase(ctx):
     """6r: `tools.quality_recycle`'s computation at its defaults: 8 random
     6x6 positions 24 plies deep, Net6 on seed-0 weights in bf16, 10,000
     sims at wave 16 on each side: the recycled 1,280-node pool at K=32 in
@@ -3930,9 +3443,7 @@ def quality_phase(here, dev, card):
     (`probe_policy_checks`) and launch counts, then holds #2-#4
     (`captured_pool_phase`) and #8/#9 (`check_hbm_on_tree`) bitwise and
     times them on each side's searched tree; then `python -m
-    tak_tpu_torch.tools.quality_k` at its defaults on the card.  Returns
-    (the path's launches, the pool-tier shape of `captured_pool_phase`,
-    the large-tier times, numbers)."""
+    tak_tpu_torch.tools.quality_k` at its defaults on the card."""
     import torch
 
     from tak_tpu_torch.engine.core import get_engine
@@ -3940,6 +3451,7 @@ def quality_phase(here, dev, card):
     from tak_tpu_torch.model.network import Network
     from tak_tpu_torch.tools import quality
 
+    here, dev, card = ctx.here, ctx.dev, ctx.card
     engine = get_engine(N)
     net = Network(engine, device=dev)
     params = net.init_variables(0)
@@ -3965,7 +3477,7 @@ def quality_phase(here, dev, card):
         sims = probe_policy_checks(engine, mcts, tree, states,
                                    policies[side], f"6r {side} side")
         searched[side] = (mcts, tree, sims)
-    path_launches = dict(kb.LAUNCHES)
+    ctx.launches["quality"] = dict(kb.LAUNCHES)
     for side, on, off in (("pool", POOL_TIER, HBM_TIER),
                           ("hbm", HBM_TIER, POOL_TIER)):
         got = launches[side]
@@ -3974,8 +3486,6 @@ def quality_phase(here, dev, card):
             fail(f"6r {side} side launches {got}")
     tv_mean, tv_max, top1 = quality.tv_top1(policies["hbm"],
                                             policies["pool"])
-    out = {"tv_mean": tv_mean, "tv_max": tv_max, "top1": top1,
-           "pool_s": seconds["pool"], "hbm_s": seconds["hbm"]}
     log(f"6r quality probe (quality_recycle at its defaults: {Q_GAMES} "
         f"positions at ply {Q_PLIES}, Net6 seed-0 weights): recycled pool "
         f"{Q_POOL} K={Q_K} wave {Q_WAVE} ({searched['pool'][2]} sims run) "
@@ -3987,24 +3497,25 @@ def quality_phase(here, dev, card):
         f"conserved, on {card}")
 
     mcts, tree, _ = searched["pool"]
-    shape = captured_pool_phase(mcts, params, tree,
-                                "quality probe's pool side", card)
+    captured_pool_phase(ctx, mcts, params, tree, "quality probe's pool side")
     mcts, tree, _ = searched["hbm"]
-    hbm = check_hbm_on_tree(mcts, params, tree,
-                            "the quality probe's large-tree side", card)
+    ctx.record_hbm(check_hbm_on_tree(mcts, params, tree,
+                                     "the quality probe's large-tree side",
+                                     card),
+                   f"quality probe, B={Q_GAMES} K={Q_REF_K} M="
+                   f"{2 * Q_SIMS + 2} V={Q_WAVE}")
     del searched
 
     t0 = time.perf_counter()
     text = run_entry(["-m", "tak_tpu_torch.tools.quality_k"], here,
                      timeout=400)
-    out["quality_k_s"] = time.perf_counter() - t0
     lines = text.splitlines()
     if not (len(lines) == 3 and lines[1].startswith("  TV distance: mean")
             and lines[2].startswith("  top-1 agreement: ")):
         fail(f"quality_k printed:\n{text[-3000:]}")
-    log(f"6r quality_k at its defaults on the card ({out['quality_k_s']:.1f}"
-        f" s with process start): " + " | ".join(x.strip() for x in lines))
-    return path_launches, shape, hbm, out
+    log(f"6r quality_k at its defaults on the card "
+        f"({time.perf_counter() - t0:.1f} s with process start): "
+        + " | ".join(x.strip() for x in lines))
 
 
 def peak_rss_mib(who) -> float:
@@ -4013,7 +3524,7 @@ def peak_rss_mib(who) -> float:
     return resource.getrusage(who).ru_maxrss / 1024.0
 
 
-def strength_phase(here, card):
+def strength_phase(ctx):
     """6s: `tools.strength_ab` on the trained Net6: in process, preset
     `recycle` (the recycled 1,280-node pool at K=32 against the large-tree
     tier at K=128), AB_GAMES games, AB_SIMS sims, cut to AB_PLIES plies;
@@ -4021,14 +3532,14 @@ def strength_phase(here, card):
     `wilson_ci`, and both tiers' launches.  Then `--subprocess-rounds`
     over two rounds of AB_SUB_GAMES games cut to AB_SUB_PLIES plies as a
     subprocess: two lines, the printed total their sum.  Prints the peak
-    RSS of this process before and after, and of the children.  Returns
-    (the in-process run's launches, numbers)."""
+    RSS of this process before and after, and of the children."""
     import re
     import resource
 
     from tak_tpu_torch.kernels import build as kb
     from tak_tpu_torch.tools import strength_ab
 
+    here, card = ctx.here, ctx.card
     keys = {"preset", "size", "sims", "sims_b", "games", "seed", "model",
             "max_plies", "wins", "losses", "draws", "unfinished",
             "win_rate", "ci95", "seconds"}
@@ -4097,7 +3608,7 @@ def strength_phase(here, card):
         f"{out['rss_after_mib']:,.0f} after; the A/B's children "
         f"{', '.join(f'{x:,.0f}' for x in child_rss)} MiB; all children "
         f"of this process {out['children_rss_mib']:,.0f} MiB, on {card}")
-    return launches, out
+    ctx.launches["strength_ab"] = launches
 
 
 # ---------------------------------------------------------------------------
@@ -4114,8 +3625,7 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "env_steps_per_s",
 def bench_program(here, card):
     """`python -m tak_tpu_torch.bench` at its defaults, as a subprocess:
     its one stdout line has `bench.py`'s keys, names this card and echoes
-    the default sizes, and every rate is positive.  Returns (the line as
-    printed, parsed)."""
+    the default sizes, and every rate is positive."""
     import torch
 
     from tak_tpu_torch.bench import BenchConfig
@@ -4144,10 +3654,9 @@ def bench_program(here, card):
         fail(f"6t bench line malformed: {lines[0]}")
     log(f"6t bench program at its defaults ({wall:.1f} s with process "
         f"start) on {card}: {lines[0]}")
-    return lines[0], line
 
 
-def bench_phase(here, engine, eval_fn, params, dev, card):
+def bench_phase(ctx):
     """6t: the port's benchmark program, then its MCTS tier's kernels at
     full width.  The program at its defaults (`bench_program`); the MCTS
     tier in process from launch counts of 0, its #1-#4 launches those of
@@ -4155,15 +3664,14 @@ def bench_phase(here, engine, eval_fn, params, dev, card):
     (512 games, V=32, K=32, M=514, no recycling) grown by 8 of its 16
     pipelined waves: #2, #4 and #3 bitwise against their plain versions
     and timed beside bound and chain floor, and #1 bitwise and timed on
-    that wave's 16,384 leaf rows, gathered as the search gathers them.
-    Returns (the tier's launches, its shape label, {kernel: (ms, plain
-    ms, bound ms, bound by)} with #1's, {kernel: chain floor ms}, numbers,
-    (the MCTS, its roots) for `--profile`)."""
+    that wave's 16,384 leaf rows, gathered as the search gathers them."""
     from tak_tpu_torch import bench
     from tak_tpu_torch.kernels import build as kb
     from tak_tpu_torch.mcts.search import MCTS
 
-    printed, line = bench_program(here, card)
+    engine, (eval_fn, params), dev, card = (ctx.engine, ctx.net6, ctx.dev,
+                                            ctx.card)
+    bench_program(ctx.here, card)
     cfg = bench.BenchConfig()
     scfg = bench.mcts_config(cfg.mcts_sims, cfg.mcts_wave, cfg.mcts_k)
     searches = bench.MCTS_REPS + 1
@@ -4210,10 +3718,8 @@ def bench_phase(here, engine, eval_fn, params, dev, card):
         "average)", card)
     if rows != B * scfg.wave_size:
         fail(f"6t fused_step: {rows} rows, expected {B * scfg.wave_size}")
-    out = {"line": printed, "rows": rows, "mcts_rate": rate, "env_rate":
-           line["env_steps_per_s"], "bench_mcts_rate": line["value"],
-           "sp_rate": line["selfplay_sims_per_s"]}
-    return launches, label, times, floors, out, (mcts, roots)
+    ctx.launches["bench_mcts"] = launches
+    ctx.record_pool(times, floors, label, f"bench MCTS wave, {rows} rows")
 
 
 # ---------------------------------------------------------------------------
@@ -4370,7 +3876,7 @@ def check_pool_at(phase, mcts, params, tree, pending, label, card):
     times["fused_step"] = (
         launch_ms(lambda: fused_step(mcts.engine, parents, acts, live)),
         cuda_ms(lambda _: step_plain(mcts.engine, parents, acts, live), 2),
-        *bound(*fused_step_work(parents, rows)))
+        *bound_ms(*fused_step_work(parents, rows)))
     log(f"{phase} check and time pool tier at the {label}: #2, #4 and #3 "
         f"bitwise equal to the plain versions; {pool_line}; {chase}; #1 on "
         f"the merged wave's {rows} leaf rows bitwise equal ({stepped} "
@@ -4381,7 +3887,7 @@ def check_pool_at(phase, mcts, params, tree, pending, label, card):
     return times, floors, rows
 
 
-def profiling_kernels_phase(engine, eval_fn, params, dev, card):
+def profiling_kernels_phase(ctx):
     """The kernels at the harnesses' shapes, bitwise against their plain
     versions and timed: #2-#4 and #1 at profile_kernels' and profile_wave's
     B=256, V=16, K=64 on 514 nodes (no recycling) after 16 of the search's
@@ -4389,13 +3895,13 @@ def profiling_kernels_phase(engine, eval_fn, params, dev, card):
     (BENCH_RECYCLE=1's pool, full); #8/#9 (with #1, #5 and the pool-tier kernels on the
     same tree) at profile_hbm's B=32, V=8, K=96, M=20,002 after its 8
     waves, and at profile_selfplay's default tree (B=32, V=16, K=128,
-    M=20,002: the large-tree tier) after 40 waves.  Returns {shape label:
-    times} for `other_shapes`."""
+    M=20,002: the large-tree tier) after 40 waves."""
     from tak_tpu_torch.mcts.search import MCTS, SearchConfig
     from tak_tpu_torch.selfplay import SelfPlayActor, SelfPlayConfig
     from tak_tpu_torch.bench import mcts_roots
 
-    pool_shapes, hbm_shapes = {}, {}
+    engine, (eval_fn, params), dev, card = (ctx.engine, ctx.net6, ctx.dev,
+                                            ctx.card)
     start = mcts_roots(engine, 256, dev)
     for recycle in (False, True):
         cfg = SearchConfig(num_sims=512, wave_size=16, max_children=64,
@@ -4419,8 +3925,9 @@ def profiling_kernels_phase(engine, eval_fn, params, dev, card):
                      f"{cfg.num_waves // 2} of {cfg.num_waves} waves")
         if mcts.tier != "pool":
             fail(f"6u {label}: tier {mcts.tier}")
-        pool_shapes[label] = check_pool_at("6u", mcts, params, tree,
-                                           pending, label, card)[:2]
+        ctx.record_pool(*check_pool_at("6u", mcts, params, tree, pending,
+                                       label, card)[:2], label,
+                        f"{label}, leaf rows")
         del tree, pending
 
     hbm_cfg = SearchConfig(num_sims=64, wave_size=8, max_children=96,
@@ -4439,13 +3946,12 @@ def profiling_kernels_phase(engine, eval_fn, params, dev, card):
         tree = mcts.prepare_root(params, mcts.init_batch(start))
         for _ in range(waves):
             mcts._wave_hbm(params, tree)
-        hbm_shapes[label] = check_hbm_on_tree(mcts, params, tree,
-                                              f"6u {label}", card)
+        ctx.record_hbm(check_hbm_on_tree(mcts, params, tree, f"6u {label}",
+                                         card), label, f"{label}, leaf rows")
         del tree
-    return pool_shapes, hbm_shapes
 
 
-def profiling_phase(engine, eval_fn, params, dev, card, rng):
+def profiling_phase(ctx):
     """6u: the profiling harnesses on the card.  Each tool's `main` runs in
     this process (U_RUNS: the defaults, or smaller knobs where the default
     run takes minutes), then `diag_bn_mismatch.run` (U_DIAG) on a
@@ -4455,20 +3961,20 @@ def profiling_phase(engine, eval_fn, params, dev, card, rng):
     profile_topk3's spot check must hold, and the exact top-K strategies
     must equal `torch.topk` here.  The tools run from launch counts of 0:
     #1-#5, #8 and #9 must each have launched.  Then the kernels at the
-    harnesses' shapes (`profiling_kernels_phase`).  Returns (the tools'
-    launches, {tool run: (wall s, lines)}, the shapes' times)."""
+    harnesses' shapes (`profiling_kernels_phase`)."""
     import torch
 
     from tak_tpu_torch.kernels import build as kb
     from tak_tpu_torch.model.network import Network
 
+    engine, dev, card = ctx.engine, ctx.dev, ctx.card
+
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
-        workdir = diag_workdir(engine, rng, dev, root)
+        workdir = diag_workdir(engine, ctx.rng, dev, root)
         net = Network(engine, device=dev)
         sync()
         kb.reset_launches()
-        summary = {}
         runs = [(name, name + "".join(f" {k}={v}" for k, v in env.items()),
                  lambda tool, argv=argv, env=env: tool.main(argv, env))
                 for name, argv, env in U_RUNS]
@@ -4482,7 +3988,6 @@ def profiling_phase(engine, eval_fn, params, dev, card, rng):
             # diag_bn_mismatch prints no timing line, as the JAX script
             values = ([] if name == "diag_bn_mismatch"
                       else timing_values(name, lines))
-            summary[key] = (wall, lines)
             note = ""
             if name == "profile_nn":
                 shares = {d: out[d] / out["max_abs_policy"]
@@ -4491,7 +3996,6 @@ def profiling_phase(engine, eval_fn, params, dev, card, rng):
                         f"{out['max_abs_policy']:.4f}: d_mm "
                         f"{shares['d_mm']:.6f}, d_im2col "
                         f"{shares['d_im2col']:.6f} (bound {NN_REL_BOUND})")
-                summary[key] = (wall, lines + [note[2:]])
                 for d, share in shares.items():
                     if not share <= NN_REL_BOUND:
                         fail(f"6u profile_nn: {d} {out[d]} is {share:.6f} "
@@ -4520,12 +4024,12 @@ def profiling_phase(engine, eval_fn, params, dev, card, rng):
     log(f"6u the {len(runs)} harness runs in {tools_s:.1f} s on {card}; "
         f"launches {launches}; {checked} exact top-K strategies equal "
         "torch.topk")
+    ctx.launches["profiling_tools"] = launches
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    shapes = profiling_kernels_phase(engine, eval_fn, params, dev, card)
+    profiling_kernels_phase(ctx)
     log(f"6u kernel checks at the harnesses' shapes in "
         f"{time.perf_counter() - t1:.1f} s")
-    return launches, summary, shapes
 
 
 # ---------------------------------------------------------------------------
@@ -4600,37 +4104,40 @@ def se_kernel_phase(dev, card):
     args = inputs(ROWS, SE_N, SE_FILTERS, SE_CHANNELS)
     ms = launch_ms(lambda: se_epilogue_kernel(*args))
     plain = cuda_ms(lambda _: se_epilogue_plain(*args), 3)
-    bound_ms = 1e3 * ROWS * 3 * 2 * SE_N ** 2 * SE_FILTERS / HBM_BYTES_PER_S
+    floor_ms = (1e3 * ROWS * 3 * 2 * SE_N ** 2 * SE_FILTERS
+                / counts.HBM_BYTES_PER_S)
     share, worst = out[(ROWS, SE_N, SE_FILTERS, SE_CHANNELS)]
     log(f"6v check tak_se_epilogue against its plain version: {ROWS} rows "
         f"{SE_N}x{SE_N} x {SE_FILTERS}, S={SE_CHANNELS}: {share:.4%} of "
         f"outputs differ, at most {worst:.2f} bf16 steps; also 1, 33 rows and "
         f"6x6 x 128, S=16 ({', '.join(f'{v[0]:.4%}' for v in out.values())})"
-        f"; time {ms:.4f} ms, plain {plain:.3f} ms, bound {bound_ms:.4f} ms "
-        f"(bytes; {100 * bound_ms / ms:.1f}% of it), on {card}")
-    return {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+        f"; time {ms:.4f} ms, plain {plain:.3f} ms, bound {floor_ms:.4f} ms "
+        f"(bytes; {100 * floor_ms / ms:.1f}% of it), on {card}")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": floor_ms,
             "share_differing": share, "max_bf16_steps": worst}
 
 
-def se8_phase(dev, card):
-    """6v: the SE net of `lc0se-20x256-8x8` (seeded random weights) on the
-    self-play path: one searched move of 32 games at the reference search
-    (10,240 sims, wave 256, K=32, a recycled 1,280-node pool) through
+def se8_phase(ctx):
+    """6v: the SE net of `lc0se-20x256-8x8` (seeded random weights): first
+    its epilogue kernel (`se_kernel_phase`); then on the self-play path
+    one searched move of 32 games at the reference search (10,240 sims,
+    wave 256, K=32, a recycled 1,280-node pool) through
     `SelfPlayActor.run` on the pool tier, every network call launching
     `tak_se_epilogue` once a block; then #2, #4, #3 and #1 bitwise against
     their plain versions at 8x8 (A=65,216) on a tree of 32 random
     mid-game roots grown until the pool is full, timed beside their bound
-    and chain floor.  Returns (launches, the kernels' times, numbers)."""
+    and chain floor.  Makes the `squeeze_excite` entry (`se_entry`)."""
     import numpy as np
     import torch
 
     from tak_tpu_torch.engine.core import get_engine
     from tak_tpu_torch.kernels import build as kb
     from tak_tpu_torch.mcts.search import MCTS
-    from tak_tpu_torch.mcts.tree_kernels import Pending
     from tak_tpu_torch.model.network import Network
     from tak_tpu_torch.model.resnet import NetConfig
 
+    dev, card = ctx.dev, ctx.card
+    se_times = se_kernel_phase(dev, card)
     engine = get_engine(SE_N)
     net = Network(engine, NetConfig(n=SE_N, filters=SE_FILTERS,
                                     blocks=SE_BLOCKS,
@@ -4662,29 +4169,23 @@ def se8_phase(dev, card):
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"6v one searched 8x8 move of {GAMES} games with the SE net "
         f"({SE_BLOCKS} x {SE_FILTERS}, SE {SE_CHANNELS}; set-up and cuDNN's "
-        f"autotuning included) in {move_s:.2f} s, {GAMES * SIMS / move_s:,.0f}"
-        f" sims/s, peak memory {peak / 1e9:.2f} GB, launches {launches}, on "
-        f"{card}")
+        f"autotuning included) in {move_s:.2f} s, peak memory "
+        f"{peak / 1e9:.2f} GB, launches {launches}, on {card}")
 
     rng = np.random.default_rng(SEED + 8)
     roots = playout_states(engine, GAMES, SE_POOL_PLIES, rng, dev)
     mcts = MCTS(engine, eval_fn, actor.search_config)
     tree = mcts.prepare_root(params, mcts.init_batch(roots))
     M = mcts.config.max_nodes
-    pending, waves = Pending.zeros(GAMES, WAVE, K, dev), 0
-    while waves < 12 and not (waves >= 2
-                              and bool((tree.next_free == M).all())):
-        pending = mcts._wave_pipelined(params, tree, pending)
-        waves += 1
-    sync()
+    pending, waves = grow_until_full(mcts, params, tree)
     if not bool((tree.next_free == M).all()):
         fail(f"6v: the 8x8 pool is not full after {waves} waves")
     label = (f"8x8 SE self-play shape, B={GAMES} K={K} M={M} V={WAVE} "
              f"A={engine.num_actions}, {waves} waves")
     times, floors, _ = check_pool_at("6v", mcts, params, tree, pending, label,
                                      card)
-    return launches, (label, times, floors), {"move_s": move_s,
-                                              "peak_bytes": peak}
+    ctx.entries["squeeze_excite"] = se_entry(se_times, launches,
+                                             (label, times, floors))
 
 
 def dp4_rank(rank, out_path):
@@ -4747,20 +4248,22 @@ def dp4_rank(rank, out_path):
                    "worst": max(rel), "median": float(np.median(rel))}, f)
 
 
-def dp4_phase(card):
+def dp4_phase(ctx):
     """6w: `dp4_rank` on DP_WORLD cards (skipped, and said so, with fewer):
     the change of every leaf within the benchmark learner's limits of the
     one-process step (worst 0.2, median 0.0042 of the larger of its norm
-    and the median leaf's).  Returns the numbers, or None."""
+    and the median leaf's)."""
     import torch
 
     from tak_tpu_torch.parallel.mesh import spawn_local
+
+    card = ctx.card
 
     cards = torch.cuda.device_count()
     if cards < DP_WORLD:
         log(f"6w skipped: {cards} CUDA device(s), the four-card NCCL step "
             f"needs {DP_WORLD}")
-        return None
+        return
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "rank0.json")
         t0 = time.perf_counter()
@@ -4781,7 +4284,6 @@ def dp4_phase(card):
         f" the change of each leaf against one process's: worst gap "
         f"{out['worst']:.2e}, median {out['median']:.2e} ({wall:.1f} s with "
         f"process start), on {card}")
-    return out
 
 
 def se_entry(se_times, se_launches, se_shape) -> dict:
@@ -4806,20 +4308,6 @@ def se_entry(se_times, se_launches, se_shape) -> dict:
     }
 
 
-def se_phases(dev, card) -> tuple:
-    """6v and 6w: (the SE epilogue's `{"kernels"}` entry, a summary)."""
-    se_times = se_kernel_phase(dev, card)
-    se_launches, se_shape, se_out = se8_phase(dev, card)
-    dp = dp4_phase(card)
-    line = (f"8x8 SE net: one 32-game move {se_out['move_s']:.2f} s, peak "
-            f"{se_out['peak_bytes'] / 1e9:.2f} GB; tak_se_epilogue "
-            f"{se_times['ms']:.4f} ms at {ROWS} rows (bound "
-            f"{se_times['bound_ms']:.4f}); four cards: "
-            + ("skipped" if dp is None else
-               f"median leaf gap {dp['median']:.2e}"))
-    return se_entry(se_times, se_launches, se_shape), line
-
-
 def make_actor(engine, eval_fn, dev, moves, mesh=None, **search_options):
     from tak_tpu_torch.mcts.search import SearchConfig
     from tak_tpu_torch.selfplay import SelfPlayActor, SelfPlayConfig
@@ -4831,34 +4319,394 @@ def make_actor(engine, eval_fn, dev, moves, mesh=None, **search_options):
     return SelfPlayActor(engine, eval_fn, cfg, device=dev, mesh=mesh)
 
 
-def learner_phases(dev, card):
-    """`--learner`: 6c-6e, 6x and 6p alone."""
-    import numpy as np
+def fused_step_phase(ctx):
+    """3a: the fused step (#1) and the fused step with legal bits (#5)
+    against their plain versions, bitwise: on one self-play wave's 8,192
+    leaf rows (varied 6x6 positions from seeded random playouts, some
+    finished, some disabled); #5 also on 1,024 playout rows at 5x5 (one
+    spread word) and 8x8 (eight; four stack words, bit 63 of the road
+    bitboard), states and packed words, the words unpacked against
+    `Engine.legal_mask`; #1 at the instant-win scan's shape (every (game,
+    action) probe row of the 32 mid-game roots, illegal pairs frozen);
+    then both, the legal sampler and the env rollout at every size 3-8
+    (`check_env_sizes`).  Times #1 and #5 on the wave's rows, their
+    main-path shape, and #1 at the win scan's."""
     import torch
 
-    l5, _, vars5, buf5 = learner_net5_phase(dev, card)
-    agree = card_vs_cpu_phase(dev, card, vars5, buf5.examples)
-    del vars5, buf5
-    l6, _, vars6, _, ex6 = learner_net6_phase(dev, card,
-                                              np.random.default_rng(SEED))
-    gx = graphed_learner_phase(dev, card, vars6, ex6)
-    _, nccl_out = nccl_phase(card)
-    log(f"summary on {card}: learner Net5 {l5['examples_per_s']:,.0f} "
-        f"examples/s; learner Net6 {l6['examples_per_s']:,.0f} examples/s "
-        f"({l6['ms_per_step']:.1f} ms per step); card against CPU in "
-        f"float32: gradients {agree['grads']:.1e}; graphed against eager: "
-        f"gradients {gx['err']['grads']:.1e}, graphed call "
-        f"{gx['graphed_s']:.2f} s with its capture, eager "
-        f"{gx['eager_s']:.2f} s; NCCL world 1 chunk step "
-        f"{1e3 * nccl_out['train_s']:.1f} ms without the mesh, "
-        f"{1e3 * nccl_out['train_mesh_s']:.1f} ms with it")
-    print(json.dumps({"learner_ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    from tak_tpu_torch.engine.core import get_engine
+    from tak_tpu_torch.engine.fused_env import fused_step, step_plain
+    from tak_tpu_torch.engine.legal_bits import step_legal, step_legal_plain
+
+    engine, rng, dev, card = ctx.engine, ctx.rng, ctx.dev, ctx.card
+    t0 = time.perf_counter()
+    states, roots = ctx.rows
+    acts = random_legal(engine, states, rng)
+    enabled = torch.as_tensor(rng.random(ROWS) < 0.9, device=dev)
+    got = fused_step(engine, states, acts, enabled)
+    want = step_plain(engine, states, acts, enabled)
+    sync()
+    compare_states(got, want, "fused_step")
+    stepped = int((got.ply != states.ply).sum())
+    log(f"check fused_step: {ROWS} rows bitwise equal ({stepped} stepped, "
+        f"{ROWS - stepped} frozen) in {time.perf_counter() - t0:.1f} s")
+    check_step_legal(engine, states, acts, enabled,
+                     f"{N}x{N}, one self-play wave's rows")
+    for size in (5, 8):
+        other = get_engine(size)
+        ost = playout_states(other, 1024, 60, rng, dev)
+        check_step_legal(
+            other, ost, random_legal(other, ost, rng),
+            torch.as_tensor(rng.random(1024) < 0.9, device=dev),
+            f"{size}x{size} playout rows")
+        del ost
+    wst, wacts, wen = win_scan_rows(engine, roots)
+    wins_rows = wacts.shape[0]
+    got = fused_step(engine, wst, wacts, wen)
+    want = step_plain(engine, wst, wacts, wen)
+    sync()
+    compare_states(got, want, "fused_step (win scan)")
+    stepped = int((got.ply != wst.ply).sum())
+    log(f"check fused_step at the win-scan shape: {wins_rows} rows bitwise "
+        f"equal ({stepped} legal probes stepped, {wins_rows - stepped} "
+        "frozen)")
+    del got, want
+    check_env_sizes(dev, rng, card)
+
+    ctx.record("fused_step", (
+        launch_ms(lambda: fused_step(engine, states, acts, enabled)),
+        cuda_ms(lambda _: step_plain(engine, states, acts, enabled), 3),
+        *bound_ms(*fused_step_work(states, ROWS))))
+    ctx.record("fused_step_legal", (
+        launch_ms(lambda: step_legal(engine, states, acts, enabled)),
+        cuda_ms(lambda _: step_legal_plain(engine, states, acts, enabled), 3),
+        *bound_ms(*step_legal_work(engine, states, ROWS))))
+    ctx.record("fused_step", (
+        cuda_ms(lambda _: fused_step(engine, wst, wacts, wen), 5),
+        cuda_ms(lambda _: step_plain(engine, wst, wacts, wen), 2),
+        *bound_ms(*fused_step_work(wst, wins_rows))),
+        f"win scan, {wins_rows} rows")
+    log(f"time on {card}: " + "; ".join(
+        f"{name} at {shape} {t['ms']:.4f} ms (plain {t['plain_ms']:.3f} ms, "
+        f"bound {t['bound_ms']:.6f} ms by {t['bound_by']})"
+        for name, shape, t in (
+            ("fused_step", f"{ROWS} rows", ctx.times["fused_step"]),
+            ("fused_step_legal", f"{ROWS} rows",
+             ctx.times["fused_step_legal"]),
+            ("fused_step", f"the win scan's {wins_rows} rows",
+             ctx.other["fused_step"][f"win scan, {wins_rows} rows"]))))
 
 
-def main(do_profile: bool = False, only_se8: bool = False,
-         only_learner: bool = False):
+def pool_tier_phase(ctx):
+    """3b: the pool-tier waves (#2 merged backup+descend, #4 descend, #3
+    expand+backup flush) against their plain versions, bitwise, on 32
+    trees mid-search (`midsearch_tree`) with the 1,280-node pool full, so
+    that every create recycles a node, and timed there, their main-path
+    shape, beside bound and chain floor; then on the hand-built trees of
+    `tree_cases` (`check_pool_cases`)."""
+    eval_fn, params = ctx.net6
+    t0 = time.perf_counter()
+    mcts, tree, pending = midsearch_tree(ctx.engine, eval_fn, params,
+                                         ctx.rows[1])
+    checks = hold_pool_kernels(mcts, tree, pending, "on the mid-search tree")
+    after = checks["backup_descend_wave"][0]
+    recycled = int(((after.parent != tree.parent)
+                    | (after.parent_action != tree.parent_action)).sum())
+    if recycled == 0:
+        fail("backup_descend_wave: no node was recycled")
+    log(f"check pool tier on the mid-search tree: backup_descend_wave "
+        f"({recycled} slots recycled), descend_wave and expand_backup_wave "
+        f"bitwise equal to the plain versions in "
+        f"{time.perf_counter() - t0:.1f} s")
+    times, floors, chase = time_pool_kernels(mcts, tree, pending, checks,
+                                             reps=5)
+    ctx.record_pool(times, floors)
+    log(f"time pool tier on the mid-search tree on {ctx.card}: "
+        + pool_times_line(times, floors) + f"; {chase}")
+    del mcts, tree, pending, checks, after
+    check_pool_cases(ctx.engine, ctx.dev, ctx.card)
+
+
+def large_tier_phase(ctx):
+    """3c: the large-tree waves (#8 descend, #9 expand+backup) against
+    their plain versions, bitwise (`check_hbm_kernels`; the pool-tier
+    kernels run on the same trees with recycling off, for comparison), at
+    the Player's shape (V=64, K=128, a 131,072-node pool, 9,036 actions):
+    on one game's tree grown by 30 waves of the plain versions with Net6
+    (its times are the "check tree" shape), on 8 trees grown by 20 with
+    peaked priors, and on a 150-node pool that runs out inside the wave;
+    then on the hand-built trees of `tree_cases` (`check_hbm_cases`)."""
+    from tak_tpu_torch.mcts.search import MCTS, SearchConfig
+
+    engine, (eval_fn, params), card = ctx.engine, ctx.net6, ctx.card
+    roots = ctx.rows[1]
+    p_cfg = SearchConfig(num_sims=P_WAVE, wave_size=P_WAVE,
+                         max_children=P_K, node_budget=P_POOL)
+    ctx.record_hbm(check_hbm_kernels(
+        MCTS(engine, eval_fn, p_cfg), params,
+        roots[:1].map(lambda x: x.contiguous()), 30,
+        "the Player's shape: one game, Net6", card), "check tree")
+    peaked = peaked_eval(engine.num_actions)
+    check_hbm_kernels(MCTS(engine, peaked, p_cfg), None,
+                      roots[:8].map(lambda x: x.contiguous()), 20,
+                      "8 games, peaked priors", card)
+    small_cfg = SearchConfig(num_sims=P_WAVE, wave_size=P_WAVE,
+                             max_children=P_K, node_budget=150)
+    check_hbm_kernels(MCTS(engine, peaked, small_cfg), None,
+                      roots[:2].map(lambda x: x.contiguous()), 3,
+                      "a 150-node pool that runs out inside the wave", card,
+                      pool_runs_out=True)
+    check_hbm_cases(engine, ctx.dev, card)
+
+
+def rollout_kernels_phase(ctx):
+    """3d: the legal sampler (#6) on the wave's 8,192 rows and the env
+    rollout (#7) at 8,192 rows x 64 steps, each with given random words
+    and with a seed (Philox written out in the kernel and in the plain
+    version), bitwise against their plain versions and timed
+    (`check_rollout_kernels`)."""
+    out = check_rollout_kernels(ctx.engine, ctx.rows[0], ctx.rng, ctx.card)
+    for name in ("legal_sampler", "env_rollout"):
+        ctx.record(name, out[name])
+    ctx.record("legal_sampler", out["legal_sampler, given words"],
+               "given words")
+
+
+def selfplay_slice_phase(ctx):
+    """4: the self-play slice (`selfplay_phase`) for MOVES searched moves:
+    every pool-tier kernel and the fused step launched; the large-tier
+    kernels, the step with legal bits, the sampler and the rollout not."""
+    launches, ctx.move1_tree, _ = selfplay_phase(ctx, "self-play slice",
+                                                 MOVES)
+    for name in POOL_TIER + ("fused_step",):
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the self-play path")
+    for name in HBM_TIER + ("fused_step_legal", "legal_sampler",
+                            "env_rollout"):
+        if launches.get(name, 0) != 0:
+            fail(f"kernel {name} launched on the self-play path")
+    ctx.launches["selfplay"] = launches
+
+
+def fused_leaf_legal_phase(ctx):
+    """6a: the self-play slice with `fused_leaf_legal=True` for
+    FUSED_MOVES searched moves (same seed, weights and openings): the
+    fused step with legal bits launched, and the pool-tier kernels and the
+    fused step (the win scan still steps); move 1's searched tree bitwise
+    the option off's (`Smoke.move1_tree`), node states included.  Then
+    one searched move with `topk_impl="packedq"` (no path of its own: it
+    launches what the self-play slice launches)."""
+    launches, tree_on, _ = selfplay_phase(
+        ctx, "self-play with fused_leaf_legal", FUSED_MOVES,
+        fused_leaf_legal=True)
+    if launches.get("fused_step_legal", 0) <= 0:
+        fail("fused_step_legal was not launched with fused_leaf_legal=True")
+    for name in POOL_TIER + ("fused_step",):
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched with fused_leaf_legal=True")
+    compare_trees(tree_on, ctx.move1_tree, "move 1's tree with "
+                  "fused_leaf_legal on against the option off")
+    log(f"check fused_leaf_legal: move 1's searched tree ({GAMES} games, "
+        f"{SIMS} sims each, root noise from the same seed) is bitwise the "
+        "tree of the option off, node states included")
+    ctx.launches["fused_leaf_legal"] = launches
+    del tree_on
+    selfplay_phase(ctx, 'self-play with topk_impl="packedq"', 1,
+                   topk_impl="packedq")
+
+
+class Smoke:
+    """What the phases share: the checkout, the card line, the device, the
+    6x6 engine and the seeded `rng`; each path's kernel launches
+    (`launches`, driven from counts of 0) and each kernel's times
+    (`record`), which make the `kernels` line (`kernels`).  The artefacts
+    that several phases use are built on first use."""
+
+    def __init__(self, here, card, dev):
+        import numpy as np
+
+        from tak_tpu_torch.engine.core import get_engine
+
+        self.here, self.card, self.dev = here, card, dev
+        self.engine = get_engine(N)
+        self.rng = np.random.default_rng(SEED)
+        self.launches = {}        # path: {kernel: launches}
+        self.times = {}           # kernel: its main-path shape's times
+        self.other = {}           # kernel: {shape: times}
+        self.entries = {}         # kernels that replace no TPU kernel
+
+    @cached_property
+    def rows(self):
+        """One self-play wave's leaf rows and 32 mid-game roots among them
+        (`selfplay_rows`)."""
+        return selfplay_rows(self.engine, self.rng, self.dev)
+
+    @cached_property
+    def net6(self):
+        """Net6 (16 x 128, bf16) on seed-0 random weights: (the evaluation
+        function, its parameters)."""
+        from tak_tpu_torch.model.network import Network
+        from tak_tpu_torch.model.resnet import NetConfig
+
+        net = Network(self.engine, NetConfig.for_size(N), device=self.dev)
+        return net.policy_eval_states, net.init_variables(SEED)
+
+    @cached_property
+    def trained6(self):
+        """The trained Net6 (NET6_WEIGHTS): (network, variables)."""
+        from tak_tpu_torch.model.network import Network
+        from tak_tpu_torch.model.resnet import NetConfig
+
+        net = Network(self.engine, NetConfig.for_size(N), device=self.dev)
+        return net, net.load(NET6_WEIGHTS)
+
+    @cached_property
+    def examples6(self):
+        """L6_EXAMPLES seeded 6x6 examples (`seeded_examples`)."""
+        return seeded_examples(self.engine, L6_EXAMPLES, self.rng, self.dev)
+
+    @cached_property
+    def candidate6(self):
+        """The trained Net6's variables after `learn6` (6e keeps those of
+        the call it checks)."""
+        return learn6(self)[0]
+
+    @cached_property
+    def net5(self):
+        """The trained Net5 (NET5_WEIGHTS): (network, variables)."""
+        from tak_tpu_torch.engine.core import get_engine
+        from tak_tpu_torch.model.network import Network
+        from tak_tpu_torch.model.resnet import NetConfig
+
+        net = Network(get_engine(5), NetConfig.for_size(5), device=self.dev)
+        return net, net.load(NET5_WEIGHTS)
+
+    @cached_property
+    def buffer5(self):
+        """The committed buffer of NET5_EXAMPLES real 5x5 self-play
+        examples."""
+        from tak_tpu_torch.engine.core import get_engine
+        from tak_tpu_torch.examples import ReplayBuffer
+
+        buf = ReplayBuffer()
+        buf.load(get_engine(5), NET5_BUFFER)
+        if len(buf) != NET5_EXAMPLES:
+            fail(f"{NET5_BUFFER} holds {len(buf)} examples, not "
+                 f"{NET5_EXAMPLES}")
+        return buf
+
+    @cached_property
+    def move1_tree(self):
+        """Move 1's searched tree of the self-play slice (4 keeps its
+        own)."""
+        return selfplay_phase(self, "self-play slice, one move", 1)[1]
+
+    def record(self, name, times, shape=None, floor=None):
+        """Kernel `name`'s (ms, plain ms, bound ms, bound by), and its
+        chain floor if it has one, at its main-path shape (`shape` None)
+        or under `shape` in its `other_shapes`."""
+        entry = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), times))
+        if floor is not None:
+            entry["chain_floor_ms"] = floor
+        if shape is None:
+            self.times[name] = entry
+        else:
+            self.other.setdefault(name, {})[shape] = entry
+
+    def record_pool(self, times, floors, shape=None, rows=None):
+        """The pool-tier waves of `time_pool_kernels`, and with `rows` the
+        fused step on the wave's leaf rows (`check_pool_at`)."""
+        for name in POOL_TIER:
+            self.record(name, times[name], shape, floors[name])
+        if rows:
+            self.record("fused_step", times["fused_step"], rows)
+
+    def record_hbm(self, out, shape=None, rows=None):
+        """The large-tier waves of `check_hbm_on_tree`, and with `rows`
+        both fused steps on the wave's leaf rows."""
+        for name in HBM_TIER:
+            self.record(name, out[name], shape, out["chain_floor_ms"][name])
+        if rows:
+            for name in ("fused_step", "fused_step_legal"):
+                self.record(name, out[name], rows)
+
+    def kernels(self) -> list:
+        """The `{"kernels": [...]}` entries: each port of a TPU kernel that
+        a phase timed, then those that replace none."""
+        out = []
+        for name, replaces in REPLACES.items():
+            if name not in self.times and name not in self.other:
+                continue
+            paths = {path: c.get(name, 0) for path, c in self.launches.items()}
+            entry = {
+                "name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": replaces,
+                # a kernel of several paths reports their sum, and the
+                # split beside it
+                "launches": sum(paths.values()), "launches_by_path": paths,
+                # every kernel was held bitwise against its plain version
+                # (any differing entry fails the run), so the error is 0
+                "max_abs_err": 0.0, **self.times.get(name, {}),
+                "library_ms": None,
+            }
+            if name in self.other:
+                entry["other_shapes"] = self.other[name]
+            out.append(entry)
+        return out + list(self.entries.values())
+
+
+PHASES = (
+    ("3a", fused_step_phase),
+    ("3b", pool_tier_phase),
+    ("3c", large_tier_phase),
+    ("3d", rollout_kernels_phase),
+    ("4", selfplay_slice_phase),
+    ("5", player_phase),
+    ("6", entry_points_phase),
+    ("6a", fused_leaf_legal_phase),
+    ("6b", env_rollout_path),
+    ("6c", learner_net5_phase),
+    ("6d", card_vs_cpu_phase),
+    ("6e", learner_net6_phase),
+    ("6x", graphed_learner_phase),
+    ("6f", pit_phase),
+    ("6g", train_cli_phase),
+    ("6h", xla_v1_phase),
+    ("6i", xla_selfplay_phase),
+    ("6j", gumbel_phase),
+    ("6k", quad_phase),
+    ("6l", dense_net5_phase),
+    ("6m", bot_phase),
+    ("6n", native_replay_phase),
+    ("6o", sharded_phase),
+    ("6p", nccl_phase),
+    ("6q", warmup_trace_phase),
+    ("6r", quality_phase),
+    ("6s", strength_phase),
+    ("6t", bench_phase),
+    ("6u", profiling_phase),
+    ("6v", se8_phase),
+    ("6w", dp4_phase),
+)
+
+
+def select(labels) -> list:
+    """The (label, phase) pairs of `PHASES` named by `labels`, in the
+    table's order; all of them when `labels` is empty.  Raises ValueError,
+    listing the labels, on one the table lacks."""
+    known = [label for label, _ in PHASES]
+    unknown = [label for label in labels if label not in known]
+    if unknown:
+        raise ValueError(f"no phase {' '.join(unknown)}; the phases are "
+                         + " ".join(known))
+    return [(label, run) for label, run in PHASES
+            if not labels or label in labels]
+
+
+def main(labels):
+    try:
+        chosen = select(labels)
+    except ValueError as e:
+        fail(str(e))
     try:
         import torch
     except ImportError:
@@ -4870,7 +4718,7 @@ def main(do_profile: bool = False, only_se8: bool = False,
         fail("the tak_tpu_torch package is not beside chip_smoke.py")
     sys.path.insert(0, str(here))
 
-    import numpy as np
+    from tak_tpu_torch.kernels import build as kb
 
     card = card_line()
     dev = torch.device("cuda", 0)
@@ -4878,24 +4726,6 @@ def main(do_profile: bool = False, only_se8: bool = False,
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-
-    from tak_tpu_torch.engine.core import get_engine
-    from tak_tpu_torch.engine.fused_env import fused_step, step_plain
-    from tak_tpu_torch.engine.legal_bits import step_legal, step_legal_plain
-    from tak_tpu_torch.kernels import build as kb
-    from tak_tpu_torch.mcts.search import MCTS, SearchConfig
-    from tak_tpu_torch.mcts.tree_kernels import (
-        Pending,
-        backup_descend_plain,
-        backup_descend_wave,
-        descend_wave,
-        expand_backup_plain,
-        expand_backup_wave,
-    )
-    from tak_tpu_torch.model.network import Network
-    from tak_tpu_torch.model.resnet import NetConfig
-
-    # ---- 2. build --------------------------------------------------------
     t_build = kb.build(verbose=True)
     log(f"build: {t_build:.1f} s for {', '.join(kb.SOURCES)}")
     for name, text in kb.BUILD_LOG.items():
@@ -4904,500 +4734,18 @@ def main(do_profile: bool = False, only_se8: bool = False,
                 log(f"  ptxas {name}: {line.strip()}")
     for name in kb.SOURCES:
         kb.library(name)
-    if only_learner:
-        learner_phases(dev, card)
-        return
-    if only_se8:
-        se_kernel, se_line = se_phases(dev, card)
-        log(f"summary on {card}: build {t_build:.1f} s; {se_line}")
-        print(json.dumps({"kernels": [se_kernel]}), flush=True)
-        print(json.dumps({"se8_ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}), flush=True)
-        return
 
-    engine = get_engine(N)
-    rng = np.random.default_rng(SEED)
-
-    # ---- 3a. fused step against its plain version -------------------------
-    # one wave's leaves: 8,192 varied rows, some finished, some disabled
-    t0 = time.perf_counter()
-    states, roots = selfplay_rows(engine, rng, dev)
-    acts = random_legal(engine, states, rng)
-    enabled = torch.as_tensor(rng.random(ROWS) < 0.9, device=dev)
-    got = fused_step(engine, states, acts, enabled)
-    want = step_plain(engine, states, acts, enabled)
-    sync()
-    compare_states(got, want, "fused_step")
-    stepped = int(((got.ply != states.ply)).sum())
-    log(f"check fused_step: {ROWS} rows bitwise equal "
-        f"({stepped} stepped, {ROWS - stepped} frozen) "
-        f"in {time.perf_counter() - t0:.1f} s")
-    # the fused step with legal bits: the same rows, then other sizes (5x5:
-    # wp = 1; 8x8: wp = 8, four stack words, bit 63 of the road bitboard)
-    check_step_legal(engine, states, acts, enabled,
-                     f"{N}x{N}, one self-play wave's rows")
-    for size in (5, 8):
-        other = get_engine(size)
-        ost = playout_states(other, 1024, 60, rng, dev)
-        check_step_legal(
-            other, ost, random_legal(other, ost, rng),
-            torch.as_tensor(rng.random(1024) < 0.9, device=dev),
-            f"{size}x{size} playout rows")
-        del ost
-
-    # the per-move instant-win scan: every (game, action) probe row of 32
-    # mid-game roots, illegal pairs on the freeze path
-    wst, wacts, wen = win_scan_rows(engine, roots)
-    wins_rows = wacts.shape[0]
-    got = fused_step(engine, wst, wacts, wen)
-    want = step_plain(engine, wst, wacts, wen)
-    sync()
-    compare_states(got, want, "fused_step (win scan)")
-    stepped = int(((got.ply != wst.ply)).sum())
-    log(f"check fused_step at the win-scan shape: {wins_rows} rows bitwise "
-        f"equal ({stepped} legal probes stepped, {wins_rows - stepped} "
-        "frozen)")
-    del got, want
-    # the fused step and the env rollout at every size 3-8
-    check_env_sizes(dev, rng, card)
-
-    # ---- 3b. tree waves against their plain versions -----------------------
-    t0 = time.perf_counter()
-    net = Network(engine, NetConfig.for_size(N), device=dev)
-    params = net.init_variables(SEED)
-
-    def eval_fn(p, s):
-        return net.policy_eval_states(p, s)
-
-    mcts, tree, pending = midsearch_tree(engine, eval_fn, params, roots)
-    scfg = mcts.config
-    M = scfg.max_nodes
-    kargs = dict(base=scfg.exploration_base, init=scfg.exploration_init,
-                 recycle=True)
-
-    checks = {}
-    # merged backup + descend (valid=1)
-    tk, tp = tree.clone(), tree.clone()
-    lk, ck = backup_descend_wave(tk, pending, **kargs)
-    lp, cp = backup_descend_plain(tp, pending, **kargs)
-    sync()
-    compare_trees(tk, tp, "backup_descend_wave")
-    if not (bool((lk == lp).all()) and bool((ck == cp).all())):
-        fail("backup_descend_wave: leaves/created differ")
-    recycled = int(((tk.parent != tree.parent)
-                    | (tk.parent_action != tree.parent_action)).sum())
-    if recycled == 0:
-        fail("backup_descend_wave: no node was recycled")
-    checks["backup_descend_wave"] = (tk, True, True, lk)
-    log(f"check backup_descend_wave: bitwise equal, {recycled} slots "
-        f"recycled, {int(ck.sum())} nodes created")
-
-    # descend (the merged kernel with valid=0)
-    tk, tp = tree.clone(), tree.clone()
-    zero = Pending.zeros(GAMES, WAVE, K, dev)
-    lk, ck = descend_wave(tk, WAVE, **kargs)
-    lp, cp = backup_descend_plain(tp, zero, **kargs)
-    sync()
-    compare_trees(tk, tp, "descend_wave")
-    if not (bool((lk == lp).all()) and bool((ck == cp).all())):
-        fail("descend_wave: leaves/created differ")
-    checks["descend_wave"] = (tk, True, False, lk)
-    log("check descend_wave: bitwise equal")
-
-    # expand + backup flush
-    tk, tp = tree.clone(), tree.clone()
-    expand_backup_wave(tk, pending, recycle=True)
-    expand_backup_plain(tp, pending, recycle=True)
-    sync()
-    compare_trees(tk, tp, "expand_backup_wave")
-    checks["expand_backup_wave"] = (tk, False, True, None)
-    log(f"check expand_backup_wave: bitwise equal "
-        f"(tree checks {time.perf_counter() - t0:.1f} s)")
-    pool_floors, pool_chase = pool_chain_floors(tree, pending, checks)
-    check_pool_cases(engine, dev, card)
-
-    # ---- 3c. large-tier waves against their plain versions -------------------
-    p_cfg = SearchConfig(num_sims=P_WAVE, wave_size=P_WAVE,
-                         max_children=P_K, node_budget=P_POOL)
-    one_root = roots[:1].map(lambda x: x.contiguous())
-    hbm_check = check_hbm_kernels(
-        MCTS(engine, eval_fn, p_cfg), params, one_root, 30,
-        "the Player's shape: one game, Net6", card)
-    peaked = peaked_eval(engine.num_actions)
-    hbm_times_8 = check_hbm_kernels(
-        MCTS(engine, peaked, p_cfg), None,
-        roots[:8].map(lambda x: x.contiguous()), 20,
-        "8 games, peaked priors", card)
-    small_cfg = SearchConfig(num_sims=P_WAVE, wave_size=P_WAVE,
-                             max_children=P_K, node_budget=150)
-    check_hbm_kernels(MCTS(engine, peaked, small_cfg), None,
-                      roots[:2].map(lambda x: x.contiguous()), 3,
-                      "a 150-node pool that runs out inside the wave", card,
-                      pool_runs_out=True)
-    check_hbm_cases(engine, dev, card)
-
-    # ---- 3d. the legal sampler and the env rollout --------------------------
-    rollout_times = check_rollout_kernels(engine, states, rng, card)
-
-    # ---- 4. the self-play slice ------------------------------------------------
-    launches, move_lines, rate, tree_off = selfplay_phase(
-        engine, eval_fn, params, dev, card, "self-play slice", MOVES)
-    moves = MOVES
-    for name in POOL_TIER + ("fused_step",):
-        if launches.get(name, 0) <= 0:
-            fail(f"kernel {name} was not launched on the self-play path")
-    for name in HBM_TIER + ("fused_step_legal", "legal_sampler",
-                            "env_rollout"):
-        if launches.get(name, 0) != 0:
-            fail(f"kernel {name} launched on the self-play path")
-
-    # ---- 5. the Player slice, 6. the entry points --------------------------
-    p_launches, p_lines, p_rate, player, searched = player_phase(
-        engine, eval_fn, params, dev, card)
-    # the kernels of the Player path again, at the shapes that path gave
-    # them: move 1's searched tree (a 64-leaf wave) and a one-row step
-    player_times = check_hbm_on_tree(
-        player.mcts, params, searched,
-        "the Player's own tree after move 1's search", card)
-    one_row = check_single_step(engine, searched, card)
-    del searched
-    wide_times = wide_wave_phase(engine, eval_fn, params, dev, card)
-    entry_points_phase(here, card)
-
-    # ---- 6a. the self-play slice with fused_leaf_legal, then packedq --------
-    f_launches, f_lines, f_rate, tree_on = selfplay_phase(
-        engine, eval_fn, params, dev, card,
-        "self-play with fused_leaf_legal", FUSED_MOVES, fused_leaf_legal=True)
-    if f_launches.get("fused_step_legal", 0) <= 0:
-        fail("fused_step_legal was not launched with fused_leaf_legal=True")
-    for name in POOL_TIER + ("fused_step",):   # the win scan still steps
-        if f_launches.get(name, 0) <= 0:
-            fail(f"kernel {name} was not launched with fused_leaf_legal=True")
-    compare_trees(tree_on, tree_off, "move 1's tree with fused_leaf_legal on "
-                  "against the option off")
-    log(f"check fused_leaf_legal: move 1's searched tree ({GAMES} games, "
-        f"{SIMS} sims each, root noise from the same seed) is bitwise the "
-        "tree of the option off, node states included")
-    del tree_on, tree_off
-    _, q_lines, q_rate, _ = selfplay_phase(
-        engine, eval_fn, params, dev, card, 'self-play with topk_impl="packedq"',
-        1, topk_impl="packedq")
-    options_line = (
-        f"self-play sims/s: {rate:,.0f} (exact top-K, dense legal mask; moves "
-        f"2-{MOVES}), {f_rate:,.0f} with fused_leaf_legal (move "
-        f"2 of {FUSED_MOVES}; {'; '.join(f_lines)}), {q_rate:,.0f} with "
-        f'topk_impl="packedq" (one move: {q_lines[0]})')
-    log(f"{options_line} on {card}")
-
-    # ---- 6b. the env rollout path ---------------------------------------------
-    r_launches, r_line, _ = env_rollout_phase(engine, dev, card)
-    for name in ("env_rollout", "legal_sampler"):
-        if r_launches.get(name, 0) <= 0:
-            fail(f"kernel {name} was not launched on the env rollout path")
-
-    # ---- 6c-6h. the training slice ------------------------------------------
-    l5, _, vars5, buf5 = learner_net5_phase(dev, card)
-    agree = card_vs_cpu_phase(dev, card, vars5, buf5.examples)
-    del vars5, buf5
-    l6, net6, vars6, cand6, ex6 = learner_net6_phase(dev, card, rng)
-    bn_times = batch_norm_phase(dev, card)
-    gx = graphed_learner_phase(dev, card, vars6, ex6)
-    pit_launches, pit_out, captured = pit_phase(engine, net6, vars6, cand6,
-                                                dev, card)
-    pit_times, pit_floors = pit_kernels_phase(captured, card)
-    t_cli = train_cli_phase(here, card)
-
-    # ---- 6h-6n. the xla and Gumbel search paths, quad rollouts, the dense
-    # head, the playtak bot, the native engine -------------------------------
-    x1_launches = xla_v1_phase(engine, net6.policy_eval_states, vars6, roots,
-                               card)
-    x_launches, x_out = xla_selfplay_phase(engine, eval_fn, params, dev, card,
-                                           rate)
-    g_launches, g_out = gumbel_phase(engine, eval_fn, params, dev, card)
-    qd_launches, qd_out, qd_shape = quad_phase(engine, eval_fn, params, dev,
-                                               card)
-    d_launches, d_out, d_shape = dense_net5_phase(dev, card)
-    b_launches, b_out = bot_phase(engine, net6, vars6, dev, card)
-    n_launches = native_replay_phase(engine, dev, card)
-
-    # ---- 6o-6q. the data-parallel path, the warm-up, the trace -------------
-    s_launches, s_out = sharded_phase(card)
-    p_out_launches, nccl_out = nccl_phase(card)
-    w_stages, w_kernels = warmup_trace_phase(here, engine, eval_fn, params,
-                                             dev, card)
-
-    # ---- 6r-6s. the search-strength guardrails ------------------------------
-    q_launches, q_shape, q_hbm, q_out = quality_phase(here, dev, card)
-    ab_launches, ab_out = strength_phase(here, card)
-
-    # ---- 6t. the port's benchmark program ----------------------------------
-    (bm_launches, bm_label, bm_times, bm_floors, bm_out,
-     (bm_mcts, bm_roots)) = bench_phase(here, engine, eval_fn, params, dev,
-                                        card)
-
-    # ---- 6u. the profiling harnesses ---------------------------------------
-    u_launches, u_summary, (u_pool, u_hbm) = profiling_phase(
-        engine, eval_fn, params, dev, card, rng)
-    slice13_line = "harnesses: " + "; ".join(
-        f"{key} {wall:.1f} s ({lines[-1].strip()})"
-        for key, (wall, lines) in u_summary.items())
-
-    # ---- 6v-6w. the SE net at 8x8, the four-card learner -------------------
-    se_kernel, se_line = se_phases(dev, card)
-    slice12_line = (
-        f"bench program: MCTS tier {bm_out['bench_mcts_rate']:,} sims/s, env "
-        f"tier {bm_out['env_rate']:,} env steps/s, self-play tier "
-        f"{bm_out['sp_rate']:,} sims/s; the MCTS tier in process "
-        f"{bm_out['mcts_rate']:,.0f} sims/s")
-    slice11_line = (
-        f"quality probe at 10,000 sims: pool side {q_out['pool_s']:.2f} s, "
-        f"large-tree side {q_out['hbm_s']:.2f} s, TV mean "
-        f"{q_out['tv_mean']:.4f}, top-1 {q_out['top1']:.3f}; quality_k "
-        f"{q_out['quality_k_s']:.1f} s; strength A/B (8 games, 800 sims, "
-        f"{AB_PLIES - 4} plies) {ab_out['wall_s']:.2f} s, {ab_out['plies_per_s']:.2f} "
-        f"plies/s; two child rounds {ab_out['sub_wall_s']:.1f} s, their peak "
-        f"RSS {', '.join(f'{x:,.0f}' for x in ab_out['child_rss_mib'])} MiB")
-    slice10_line = (
-        f"2 ranks on one card: Net6 {s_out['s_per_move']:.3f} s a move (a "
-        f"shared card, not a scaling figure); NCCL world 1: a Net6 chunk "
-        f"step {1e3 * nccl_out['train_mesh_s']:.1f} ms "
-        f"({1e3 * nccl_out['train_s']:.1f} without the mesh), a move "
-        f"{nccl_out['move_mesh_s']:.3f} s ({nccl_out['move_s']:.3f}); "
-        f"cli.warmup total {w_stages['total']:.1f} s (build "
-        f"{w_stages['build kernels']:.1f}, run_sims "
-        f"{w_stages['run_sims (the big one)']:.2f}, train chunk "
-        f"{w_stages['train chunk (500)']:.2f}, pit run_sims "
-        f"{w_stages['pit run_sims']:.2f})")
-    slice9_line = (
-        f"xla path {x_out['sims_per_s']:,.0f} sims/s "
-        f"({x_out['ms_per_wave']:.1f} ms per wave, a wave's descents "
-        f"{x_out['descent_graph_ms']:.1f} ms as CUDA graphs and "
-        f"{x_out['descent_eager_ms']:.1f} ms eager; pool tier "
-        f"{x_out['pool_sims_per_s']:,.0f}); gumbel self-play "
-        f"{g_out['sims_per_s']:,.0f} sims/s; quad-rollout self-play "
-        f"{qd_out['sims_per_s']:,.0f} sims/s; dense Net5 "
-        f"{d_out['examples_per_s']:,.0f} examples/s (self-play "
-        f"{d_out['sims_per_s']:,.0f} sims/s); bot "
-        f"{b_out['rollouts_per_think']:,.0f} rollouts per think, "
-        f"{b_out['ms_per_wave']:.2f} ms per wave")
-    train_line = (
-        f"learner Net5 {l5['examples_per_s']:,.0f} examples/s "
-        f"({l5['ms_per_chunk']:.2f} ms per chunk); learner Net6 "
-        f"{l6['examples_per_s']:,.0f} examples/s ({l6['ms_per_step']:.1f} ms "
-        f"per step, {100 * l6['bf16_share']:.1f}% of the bf16 peak; graphed "
-        f"against eager: summed gradients {gx['err']['grads']:.1e} (L2)); card "
-        f"against CPU in float32: loss {agree['loss']:.1e}, gradients "
-        f"{agree['grads']:.1e} (L2), statistics {agree['stats']:.1e}; pit "
-        f"{pit_out['plies_per_s']:.2f} plies/s ({pit_out['ms_per_search']:.1f} "
-        f"ms per half-batch search); cli.train 3 generations in "
-        f"{t_cli:.1f} s")
-
-    # each path was driven from counts of 0 (the packedq move is no path
-    # of its own: it launches what the self-play slice launches)
-    by_path = {name: dict(zip(PATHS, (c.get(name, 0) for c in (
-        launches, p_launches, f_launches, r_launches, pit_launches,
-        x1_launches, x_launches, g_launches, qd_launches, d_launches,
-        b_launches, n_launches, s_launches, p_out_launches, q_launches,
-        ab_launches, bm_launches, u_launches))))
-        for name in REPLACES}
-
-    # ---- 7. timing ---------------------------------------------------------
-    rows = []
-    st = states.clone()
-    t_kernel = launch_ms(lambda: fused_step(engine, st, acts, enabled))
-    t_plain = cuda_ms(lambda _: step_plain(engine, st, acts, enabled), 3)
-    t_bound, by = bound(*fused_step_work(st, ROWS))
-    rows.append(("fused_step", t_kernel, t_plain, t_bound, by))
-
-    t_kernel = launch_ms(lambda: step_legal(engine, st, acts, enabled))
-    t_plain = cuda_ms(lambda _: step_legal_plain(engine, st, acts, enabled), 3)
-    t_bound, by = bound(*step_legal_work(engine, st, ROWS))
-    rows.append(("fused_step_legal", t_kernel, t_plain, t_bound, by))
-    for name in ("legal_sampler", "env_rollout"):
-        rows.append((name, *rollout_times[name]))
-
-    t_wins = cuda_ms(lambda _: fused_step(engine, wst, wacts, wen), 5)
-    t_wins_plain = cuda_ms(lambda _: step_plain(engine, wst, wacts, wen), 2)
-    wins_bound, wins_by = bound(*fused_step_work(wst, wins_rows))
-    wins_line = (f"fused_step at the win-scan shape ({wins_rows} rows): "
-                 f"kernel {t_wins:.4f} ms, plain {t_wins_plain:.3f} ms, "
-                 f"bound {wins_bound:.5f} ms ({wins_by})")
-    log(f"time {wins_line} on {card}")
-    floor = launch_floor_ms(dev)
-    log(f"time fused_step at small shapes: the Player's {P_WAVE} leaf rows "
-        f"{player_times['fused_step'][0]:.4f} ms, one row {one_row[0]:.4f} "
-        f"ms, against a launch floor of {floor:.4f} ms (zero_() on 64 "
-        f"int32) on {card}")
-
-    for name, (after, descend, backup, _) in checks.items():
-        def setup():
-            return tree.clone()
-
-        if name == "backup_descend_wave":
-            run_k = lambda t: backup_descend_wave(t, pending, **kargs)
-            run_p = lambda t: backup_descend_plain(t, pending, **kargs)
-        elif name == "descend_wave":
-            # the wrapper of `descend_wave` with its empty pending wave made
-            # beforehand: an allocation inside the span could wait
-            run_k = lambda t: backup_descend_wave(t, zero, **kargs)
-            run_p = lambda t: backup_descend_plain(t, zero, **kargs)
-        else:
-            run_k = lambda t: expand_backup_wave(t, pending, recycle=True)
-            run_p = lambda t: expand_backup_plain(t, pending, recycle=True)
-        t_kernel = cuda_ms(run_k, 5, setup)
-        t_plain = cuda_ms(run_p, 1, setup)
-        nbytes = tree_bytes(tree, after, WAVE, descend, backup)
-        ops = tree_ops(GAMES, WAVE, engine.num_actions, M, descend)
-        t_bound, by = bound(nbytes, ops)
-        rows.append((name, t_kernel, t_plain, t_bound, by))
-    log(f"time pool tier on {card}: chain floors "
-        + ", ".join(f"{n} {v:.4f} ms" for n, v in pool_floors.items())
-        + f"; {pool_chase}")
-
-    for name in HBM_TIER:
-        rows.append((name, *player_times[name]))
-    for what, times in (("the Player's own tree", player_times),
-                        ("one game, check tree", hbm_check),
-                        ("8 games", hbm_times_8),
-                        (f"the Player's tree at wave {P_WIDE}", wide_times)):
-        log(f"comparison at K={P_K} M={P_POOL}, {what}, on {card}: "
-            f"descend_wave_hbm {times['descend_wave_hbm'][0]:.4f} ms vs the "
-            f"pool-tier descend_wave {times['descend_wave'][0]:.4f} ms; "
-            f"expand_backup_wave_hbm "
-            f"{times['expand_backup_wave_hbm'][0]:.4f} ms vs the pool-tier "
-            f"expand_backup_wave {times['expand_backup_wave'][0]:.4f} ms "
-            "(recycling off, same trees)")
-
-    if do_profile:
-        profile_search(mcts, params, roots, card)
-        profile_search(
-            MCTS(engine, eval_fn,
-                 dataclasses.replace(scfg, fused_leaf_legal=True)),
-            params, roots, card)
-        profile_player(player, card)
-        profile_learner_step(net6, vars6, ex6, card)
-        _, pit_params, pit_tree = captured["trees"][0]
-        profile_search(captured["mcts"], pit_params, pit_tree.state[:, 0],
-                       card, "one pit half-batch search (64 games x 800 "
-                       "sims, K=128, fresh trees)")
-        profile_search(bm_mcts, params, bm_roots, card,
-                       f"one bench MCTS-tier search ({bm_label}, 512 sims, "
-                       "fresh trees)")
-    del captured
-
-    def times(t):
-        return dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), t))
-
-    def hbm_times(measured, name):
-        return {**times(measured[name]),
-                "chain_floor_ms": measured["chain_floor_ms"][name]}
-
-    # a kernel's times at its other shapes, beside the headline ones: the
-    # large-tier waves on the check tree grown by the plain versions, the
-    # fused step on the Player path's 64 leaf rows and on one row
-    other_shapes = {
-        "fused_step": {f"win scan, {wins_rows} rows":
-                       times((t_wins, t_wins_plain, wins_bound, wins_by)),
-                       f"player wave, {P_WAVE} rows":
-                       times(player_times["fused_step"]),
-                       "one row": times(one_row),
-                       f"bench MCTS wave, {bm_out['rows']} rows":
-                       times(bm_times["fused_step"]),
-                       **{f"{label}, leaf rows": times(t["fused_step"])
-                          for label, (t, _) in u_pool.items()},
-                       **{f"{label}, leaf rows": times(out["fused_step"])
-                          for label, out in u_hbm.items()},
-                       "launch_floor_ms": floor},
-        "fused_step_legal": {f"player wave, {P_WAVE} rows":
-                             times(player_times["fused_step_legal"]),
-                             **{f"{label}, leaf rows":
-                                times(out["fused_step_legal"])
-                                for label, out in u_hbm.items()}},
-        "legal_sampler": {"given words":
-                          times(rollout_times["legal_sampler, given words"])},
-        **{name: {"check tree": hbm_times(hbm_check, name),
-                  f"player wave {P_WIDE}": hbm_times(wide_times, name),
-                  f"quality probe, B={Q_GAMES} K={Q_REF_K} M="
-                  f"{2 * Q_SIMS + 2} V={Q_WAVE}": hbm_times(q_hbm, name),
-                  **{label: hbm_times(out, name)
-                     for label, out in u_hbm.items()}}
-           for name in HBM_TIER},
-        **{name: {label: {**times(shape_times[name]),
-                          "chain_floor_ms": shape_floors[name]}
-                  for label, shape_times, shape_floors in (
-                      ("pit, B=64 K=128 M=1602 V=16", pit_times, pit_floors),
-                      qd_shape, d_shape, q_shape,
-                      (bm_label, bm_times, bm_floors),
-                      *((label, t, f) for label, (t, f) in u_pool.items()))}
-           for name in POOL_TIER},
-    }
-    kernels = []
-    for name, t_kernel, t_plain, t_bound, by in rows:
-        paths = by_path[name]
-        log(f"time {name}: kernel {t_kernel:.4f} ms, plain {t_plain:.3f} ms, "
-            f"bound {t_bound:.6f} ms ({by}); launches by path: {paths}, "
-            f"on {card}")
-        entry = {
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            # each path was driven from counts of 0; a kernel of several
-            # paths reports their sum, and the split beside it
-            "launches": sum(paths.values()),
-            "launches_by_path": paths,
-            # every kernel was held bitwise against its plain version above
-            # (any differing entry fails the run), so the error is 0
-            "max_abs_err": 0.0,
-            "ms": t_kernel, "plain_ms": t_plain, "bound_ms": t_bound,
-            "bound_by": by, "library_ms": None,
-        }
-        # the tree waves are sequential by definition: the pointer chase
-        # along the wave's own paths, beside the throughput bound
-        if name in HBM_TIER:
-            entry["chain_floor_ms"] = player_times["chain_floor_ms"][name]
-        elif name in POOL_TIER:
-            entry["chain_floor_ms"] = pool_floors[name]
-        if name in other_shapes:
-            entry["other_shapes"] = other_shapes[name]
-        kernels.append(entry)
-    # train-mode BatchNorm: no TPU kernel (flax's nn.BatchNorm is XLA's);
-    # one forward and backward at a Net6 chunk's shape, the Net6 learner's
-    # launches
-    (k_f, k_b), (p_f, p_b) = bn_times["kernel"], bn_times["plain"]
-    log(f"time batch_norm: kernels {k_f + k_b:.4f} ms (forward {k_f:.4f}, "
-        f"backward {k_b:.4f}), plain {p_f + p_b:.3f} ms, bound "
-        f"{sum(bn_times['bound']):.4f} ms (bytes); launches "
-        f"{l6['bn_launches']}, on {card}")
-    kernels.append({
-        "name": "batch_norm", "route": "cuda",
-        "source": "tak_tpu_torch/csrc/batch_norm.cu", "replaces": None,
-        "launches": sum(l6["bn_launches"].values()),
-        "launches_by_path": {"learner_net6": l6["bn_launches"]},
-        "max_bf16_steps": max(bn_times["err"]["y_steps"],
-                              bn_times["err"]["dx_steps"]),
-        "ms": k_f + k_b, "plain_ms": p_f + p_b,
-        "bound_ms": sum(bn_times["bound"]), "bound_by": "bytes",
-        "library_ms": None,
-        "other_shapes": {"forward": {"ms": k_f, "plain_ms": p_f,
-                                     "bound_ms": bn_times["bound"][0]},
-                         "backward": {"ms": k_b, "plain_ms": p_b,
-                                      "bound_ms": bn_times["bound"][1]}},
-    })
-    # the end-to-end numbers again, next to the result lines
-    log(f"summary on {card}: build {t_build:.1f} s; "
-        + "; ".join(move_lines)
-        + f"; moves 2-{moves}: {rate:,.0f} self-play sims/s; {wins_line}; "
-        + f"{options_line}; {r_line}; "
-        + "; ".join(p_lines)
-        + f"; Player: {p_rate:,.0f} rollouts/s over {P_MOVES} moves; "
-        + train_line + "; " + slice9_line + "; " + slice10_line + "; "
-        + slice11_line + "; " + slice12_line + "; " + slice13_line + "; "
-        + se_line)
-    kernels.append(se_kernel)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    ctx = Smoke(here, card, dev)
+    for label, run in chosen:
+        t0 = time.perf_counter()
+        run(ctx)
+        log(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    print(json.dumps({"kernels": ctx.kernels()}), flush=True)
+    print(json.dumps({"phases_ok": [label for label, _ in chosen],
+                      "device": device} if labels else
+                     {"ok": True, "device": device}), flush=True)
 
 
 def sync():
@@ -5408,6 +4756,4 @@ def sync():
 
 
 if __name__ == "__main__":
-    main(do_profile="--profile" in sys.argv[1:],
-         only_se8="--se8" in sys.argv[1:],
-         only_learner="--learner" in sys.argv[1:])
+    main(sys.argv[1:])
