@@ -13,7 +13,7 @@ Prints the card's name and power limit, builds `tak_tpu_torch/csrc/`
 fatal on failure and each described by its function's docstring:
 
     3a 3b 3c 3d 4 5 6 6a 6b 6c 6d 6e 6x 6f 6g 6h 6i 6j 6k 6l 6m 6n 6o
-    6p 6q 6r 6s 6t 6u 6v 6w
+    6p 6q 6r 6s 6t 6u 6v 6w 6y
 
 Named phases run in that order, whatever the order given.  What several
 phases share (the networks, the 32 roots, the seeded examples) is built
@@ -27,8 +27,9 @@ on its first use.  The last two lines:
     chase along the wave's own paths (descents that see each other's marks
     cannot approach a throughput bound).  `other_shapes` holds a kernel's
     times at the other paths' shapes, `launches_by_path` its launches on
-    each path the phases drove from counts of 0.  `batch_norm` and
-    `squeeze_excite` replace no TPU kernel (`replaces` null).
+    each path the phases drove from counts of 0.  `batch_norm`,
+    `squeeze_excite` and `legal_topk` replace no TPU kernel (`replaces`
+    null).
   * `{"ok": true, "device": ...}` after every phase; after named phases
     `{"phases_ok": [...], "device": ...}`, never `ok`.
 
@@ -51,7 +52,7 @@ import time
 from functools import cached_property
 from pathlib import Path
 
-from benchmark.reference import counts
+from benchmark.reference import counts, topk_counts
 
 N = 6
 GAMES = 32
@@ -135,6 +136,9 @@ REPLACES = {
 }
 POOL_TIER = ("backup_descend_wave", "descend_wave", "expand_backup_wave")
 HBM_TIER = ("descend_wave_hbm", "expand_backup_wave_hbm")
+# what a kernel tier's wave runs for its leaves on the card with the exact
+# top-K: the step with legal bits, then the legal top-K on its words
+LEAF_KERNELS = ("fused_step_legal", "legal_topk")
 SOURCES = {
     "fused_step": "tak_tpu_torch/csrc/fused_step.cu",
     "fused_step_legal": "tak_tpu_torch/csrc/fused_step_legal.cu",
@@ -684,7 +688,7 @@ def player_phase(ctx):
             f"leaf depth {depth:.2f}, {nodes} nodes; play_move (examples, "
             f"analysis, reroot) {t_play * 1e3:.1f} ms, {kept} on {card}")
     launches = dict(kb.LAUNCHES)
-    for name in HBM_TIER + ("fused_step",):
+    for name in HBM_TIER + ("fused_step",) + LEAF_KERNELS:
         if launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the Player path")
     for name in POOL_TIER:
@@ -2123,10 +2127,11 @@ def pit_phase(ctx):
     waves = cfg.search.num_waves
     want = {"descend_wave": S, "backup_descend_wave": S * (waves - 1),
             "expand_backup_wave": S,
-            # leaf steps, one step a ply, the batched opening steps and
-            # the openings' own games (`Game.play_action`)
-            "fused_step": S * waves + plies + opening
-            + cfg.games // 2 * opening}
+            # the leaves: a step with legal bits and a top-K a wave
+            **dict.fromkeys(LEAF_KERNELS, S * waves),
+            # one step a ply, the batched opening steps and the openings'
+            # own games (`Game.play_action`)
+            "fused_step": plies + opening + cfg.games // 2 * opening}
     log(f"launches in the pit: {launches} ({S} half-batch searches of "
         f"{waves} waves)")
     if launches != want:
@@ -2492,7 +2497,8 @@ def xla_v1_phase(ctx):
         fail(f"V=1 check: only {evicted} of {GAMES} pools filled up")
     recycle_invariants(trees["xla"], X1_SIMS, "V=1 xla tree")
     want_pool = {"descend_wave": 1, "backup_descend_wave": X1_SIMS - 1,
-                 "expand_backup_wave": 1, "fused_step": X1_SIMS}
+                 "expand_backup_wave": 1,
+                 **dict.fromkeys(LEAF_KERNELS, X1_SIMS)}
     if counts["pallas"] != want_pool:
         fail(f"V=1 pool-tier launches {counts['pallas']}, want {want_pool}")
     if counts["xla"] != {"fused_step": X1_SIMS}:
@@ -2699,7 +2705,7 @@ def quad_phase(ctx):
     per_call = {"descend_wave": chunks,
                 "backup_descend_wave": chunks * (chunk - 1),
                 "expand_backup_wave": chunks,
-                "fused_step": chunks * chunk}
+                **dict.fromkeys(LEAF_KERNELS, chunks * chunk)}
     calls, gained, orig = [], collections.Counter(), mcts.run_sims
     captured = []
 
@@ -3481,7 +3487,7 @@ def quality_phase(ctx):
     for side, on, off in (("pool", POOL_TIER, HBM_TIER),
                           ("hbm", HBM_TIER, POOL_TIER)):
         got = launches[side]
-        if (any(got.get(k, 0) <= 0 for k in on + ("fused_step",))
+        if (any(got.get(k, 0) <= 0 for k in on + LEAF_KERNELS)
                 or any(got.get(k, 0) != 0 for k in off)):
             fail(f"6r {side} side launches {got}")
     tv_mean, tv_max, top1 = quality.tv_top1(policies["hbm"],
@@ -3682,9 +3688,11 @@ def bench_phase(ctx):
                                   cfg.mcts_wave, cfg.mcts_k)
     sync()
     launches = dict(kb.LAUNCHES)
-    # a fused step a wave, and the two that make the roots
+    # a step with legal bits and a top-K a wave, and the two fused steps
+    # that make the roots
     want = {**pool_search_launches(scfg, searches),
-            "fused_step": searches * scfg.num_waves + 2}
+            **dict.fromkeys(LEAF_KERNELS, searches * scfg.num_waves),
+            "fused_step": 2}
     if launches != want:
         fail(f"6t MCTS tier launches {launches}, expected {want}")
     sims = scfg.num_waves * scfg.wave_size
@@ -4013,7 +4021,7 @@ def profiling_phase(ctx):
         sync()
         launches = dict(kb.LAUNCHES)
     tools_s = time.perf_counter() - t0
-    for kernel in POOL_TIER + HBM_TIER + ("fused_step", "fused_step_legal"):
+    for kernel in POOL_TIER + HBM_TIER + ("fused_step",) + LEAF_KERNELS:
         if launches.get(kernel, 0) <= 0:
             fail(f"6u: kernel {kernel} was not launched by the harnesses: "
                  f"{launches}")
@@ -4159,7 +4167,7 @@ def se8_phase(ctx):
     if se == 0 or se % SE_BLOCKS:
         fail(f"6v: tak_se_epilogue launched {se} times, not a multiple of "
              f"{SE_BLOCKS} blocks")
-    for name in POOL_TIER:
+    for name in POOL_TIER + LEAF_KERNELS:
         if launches.get(name, 0) <= 0:
             fail(f"6v: kernel {name} was not launched at 8x8")
     if len(examples) != GAMES or any(int(e.visits.sum()) != SIMS
@@ -4305,6 +4313,183 @@ def se_entry(se_times, se_launches, se_shape) -> dict:
             ("ms", "plain_ms", "bound_ms", "bound_by"), t),
             **({"chain_floor_ms": floors[name]} if name in floors else {}))
             for name, t in times.items()}},
+    }
+
+
+TOPK_PLAIN_ROWS = 1024         # rows of the plain top-K at a time in 6y
+TOPK_LEVELS = (0.0, 2.0 ** -12, 2.0 ** -8, 0.25)   # 6y's tied priors
+
+
+def plain_topk(engine, policy, place, spread, k):
+    """`masked_topk_packed` (the legal top-K kernel's plain version) in row
+    blocks of TOPK_PLAIN_ROWS: rows are independent, so this is the
+    unblocked result."""
+    import torch
+
+    from tak_tpu_torch.engine.legal_bits import masked_topk_packed
+
+    parts = [masked_topk_packed(engine, policy[i:i + TOPK_PLAIN_ROWS],
+                                place[i:i + TOPK_PLAIN_ROWS],
+                                spread[i:i + TOPK_PLAIN_ROWS], k)
+             for i in range(0, policy.shape[0], TOPK_PLAIN_ROWS)]
+    return torch.cat([v for v, _ in parts]), torch.cat([i for _, i in parts])
+
+
+def check_topk(engine, policy, place, spread, k, what):
+    """The legal top-K kernel on (policy, place, spread) bitwise its plain
+    version, ids and priors in every slot.  Returns (the kernel's output,
+    the rows with pads)."""
+    import torch
+
+    from tak_tpu_torch.engine.legal_bits import legal_topk
+
+    got = legal_topk(engine, policy, place, spread, k)
+    want = plain_topk(engine, policy, place, spread, k)
+    bad = ((got[1] != want[1])
+           | (got[0].view(torch.int32) != want[0].view(torch.int32)))
+    if bool(bad.any()):
+        row = int(bad.any(1).nonzero()[0])
+        fail(f"6y legal_topk ({what}, K={k}): {int(bad.any(1).sum())} of "
+             f"{policy.shape[0]} rows differ from the plain version; row "
+             f"{row}: ids {got[1][row].tolist()} against "
+             f"{want[1][row].tolist()}")
+    return got, int((want[0] < 0).any(1).sum())
+
+
+def tied_policies(engine, rows, rng, dev):
+    """Rows of TOPK_LEVELS drawn at random (ties at every K boundary),
+    every fourth row all zero, every fourth a softmax of logits spread 3."""
+    import torch
+
+    A = engine.num_actions
+    levels = torch.tensor(TOPK_LEVELS, device=dev)
+    pol = levels[torch.as_tensor(rng.integers(0, len(TOPK_LEVELS),
+                                              (rows, A)), device=dev)]
+    kind = torch.arange(rows, device=dev) % 4
+    soft = torch.softmax(torch.as_tensor(
+        3.0 * rng.standard_normal((rows, A)), dtype=torch.float32,
+        device=dev), -1)
+    pol = torch.where((kind == 2)[:, None], torch.zeros_like(pol), pol)
+    return torch.where((kind == 3)[:, None], soft, pol)
+
+
+def topk_move(ctx, what, engine, eval_fn, params):
+    """One searched move of 32 games at the reference search
+    (`make_actor`) with every wave's legal top-K held against its plain
+    version on the wave's own inputs (the policy and the words the leaf
+    step emitted).  Returns (waves, rows, padded rows, launches)."""
+    from tak_tpu_torch.kernels import build as kb
+    from tak_tpu_torch.mcts import search as search_mod
+
+    real = search_mod.legal_topk
+    seen = {"waves": 0, "rows": 0, "padded": 0}
+
+    def checking(eng, policy, place, spread, k):
+        out, padded = check_topk(eng, policy, place, spread, k,
+                                 f"{what}, wave {seen['waves']}")
+        seen["waves"] += 1
+        seen["rows"] += policy.shape[0]
+        seen["padded"] += padded
+        return out
+
+    actor = make_actor(engine, eval_fn, ctx.dev, 1)
+    kb.reset_launches()
+    search_mod.legal_topk = checking
+    try:
+        actor.run(params, seed=SEED, log=lambda *a, **k: None)
+    finally:
+        search_mod.legal_topk = real
+    sync()
+    launches = dict(kb.LAUNCHES)
+    if seen["waves"] == 0 or launches.get("legal_topk", 0) != seen["waves"]:
+        fail(f"6y {what}: {seen['waves']} waves checked, legal_topk "
+             f"launched {launches.get('legal_topk', 0)} times")
+    log(f"6y check legal_topk on every wave of {what}: {seen['waves']} "
+        f"waves, {seen['rows']} rows ({seen['padded']} with pads) bitwise "
+        "the plain version")
+    return seen["waves"], seen["rows"], seen["padded"], launches
+
+
+def legal_topk_phase(ctx):
+    """6y: the legal top-K kernel (#12, `csrc/legal_topk.cu`, no TPU
+    original) against its plain version `masked_topk_packed`, bitwise,
+    ids and priors in every slot: at the search's shapes (8,192 rows of
+    6x6, 9,036 actions, K 32 and 128; 8,192 rows of 8x8, 65,216 actions,
+    K 32), on a self-play wave's rows and 8x8 playout rows, with tied
+    policies (`tied_policies`); then on every wave's own inputs of one
+    searched 6x6 self-play move with the trained Net6 and one 8x8 move
+    with the SE net on seeded random weights (`topk_move`).  Timed at the
+    main-path shapes beside the least time (`benchmark/reference/
+    topk_counts.py`), the plain version and the stage it replaced
+    (`Engine.legal_mask` + `masked_topk(..., "exact")`).  Makes the
+    `legal_topk` entry."""
+    import numpy as np
+    import torch
+
+    from tak_tpu_torch.engine.core import get_engine
+    from tak_tpu_torch.engine.legal_bits import legal_bits_plain, legal_topk
+    from tak_tpu_torch.mcts.search import masked_topk
+    from tak_tpu_torch.model.network import Network
+    from tak_tpu_torch.model.resnet import NetConfig
+
+    dev, card = ctx.dev, ctx.card
+    rng = np.random.default_rng(SEED + 12)
+    e8 = get_engine(SE_N)
+    shapes = (("6x6 self-play wave", ctx.engine, ctx.rows[0], (K, P_K)),
+              ("8x8 playout rows", e8,
+               playout_states(e8, ROWS, 40, rng, dev), (K,)))
+    times = {}
+    for label, engine, states, ks in shapes:
+        place, spread = legal_bits_plain(engine, states)
+        policy = tied_policies(engine, ROWS, rng, dev)
+        for k in ks:
+            _, padded = check_topk(engine, policy, place, spread, k, label)
+            log(f"6y check legal_topk ({label}, {ROWS} rows x "
+                f"{engine.num_actions}, K={k}, tied levels {TOPK_LEVELS}, "
+                f"zero and softmax rows): bitwise the plain version "
+                f"({padded} rows with pads)")
+        soft = torch.softmax(torch.as_tensor(
+            3.0 * rng.standard_normal((ROWS, engine.num_actions)),
+            dtype=torch.float32, device=dev), -1)
+        for k in ks:
+            ms = launch_ms(lambda: legal_topk(engine, soft, place, spread, k))
+            plain = cuda_ms(lambda _: plain_topk(engine, soft, place, spread,
+                                                 k), 2)
+            stage = cuda_ms(lambda _: masked_topk(
+                soft, engine.legal_mask(states), k, "exact"), 2)
+            bound = 1e3 * topk_counts.least_seconds(ROWS, engine.n, k)
+            times[f"{label}, {ROWS} rows, K={k}"] = {
+                "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                "bound_by": "bytes", "masked_topk_exact_ms": stage}
+            log(f"6y time legal_topk ({label}, {ROWS} rows x "
+                f"{engine.num_actions}, K={k}, softmax rows) on {card}: "
+                f"{ms:.4f} ms, bound {bound:.4f} ms ({100 * bound / ms:.1f}% "
+                f"of it), plain {plain:.3f} ms, legal_mask + masked_topk "
+                f"exact {stage:.3f} ms")
+        del place, spread, policy, soft
+
+    net6, variables6 = ctx.trained6
+    moves = {"selfplay_6x6": topk_move(ctx, "one 6x6 self-play move (trained "
+                                       "Net6)", ctx.engine,
+                                       net6.policy_eval_states, variables6)}
+    se = Network(e8, NetConfig(n=SE_N, filters=SE_FILTERS,
+                               blocks=SE_BLOCKS, se_channels=SE_CHANNELS),
+                 device=dev)
+    se_params = {k: v.to(dev) for k, v in se.init_variables(SEED).items()}
+    moves["selfplay_se8"] = topk_move(ctx, "one 8x8 move (SE net)", e8,
+                                      se.policy_eval_states, se_params)
+    main = times[f"6x6 self-play wave, {ROWS} rows, K={K}"]
+    paths = {path: c.get("legal_topk", 0) for path, c in ctx.launches.items()}
+    paths.update({f"6y {path}": m[3].get("legal_topk", 0)
+                  for path, m in moves.items()})
+    ctx.entries["legal_topk"] = {
+        "name": "legal_topk", "route": "cuda",
+        "source": "tak_tpu_torch/csrc/legal_topk.cu", "replaces": None,
+        "launches": sum(paths.values()), "launches_by_path": paths,
+        "max_abs_err": 0.0, **main, "library_ms": None,
+        "waves_checked": {path: m[0] for path, m in moves.items()},
+        "other_shapes": {label: t for label, t in times.items()
+                         if t is not main},
     }
 
 
@@ -4473,15 +4658,15 @@ def rollout_kernels_phase(ctx):
 
 def selfplay_slice_phase(ctx):
     """4: the self-play slice (`selfplay_phase`) for MOVES searched moves:
-    every pool-tier kernel and the fused step launched; the large-tier
-    kernels, the step with legal bits, the sampler and the rollout not."""
+    every pool-tier kernel, the fused step (the moves and the instant-win
+    scan), the step with legal bits (the leaves) and the legal top-K
+    launched; the large-tier kernels, the sampler and the rollout not."""
     launches, ctx.move1_tree, _ = selfplay_phase(ctx, "self-play slice",
                                                  MOVES)
-    for name in POOL_TIER + ("fused_step",):
+    for name in POOL_TIER + ("fused_step",) + LEAF_KERNELS:
         if launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the self-play path")
-    for name in HBM_TIER + ("fused_step_legal", "legal_sampler",
-                            "env_rollout"):
+    for name in HBM_TIER + ("legal_sampler", "env_rollout"):
         if launches.get(name, 0) != 0:
             fail(f"kernel {name} launched on the self-play path")
     ctx.launches["selfplay"] = launches
@@ -4490,17 +4675,17 @@ def selfplay_slice_phase(ctx):
 def fused_leaf_legal_phase(ctx):
     """6a: the self-play slice with `fused_leaf_legal=True` for
     FUSED_MOVES searched moves (same seed, weights and openings): the
-    fused step with legal bits launched, and the pool-tier kernels and the
-    fused step (the win scan still steps); move 1's searched tree bitwise
-    the option off's (`Smoke.move1_tree`), node states included.  Then
-    one searched move with `topk_impl="packedq"` (no path of its own: it
-    launches what the self-play slice launches)."""
+    step with legal bits and the legal top-K launched (on the card the
+    exact top-K takes them with the option on or off), and the pool-tier
+    kernels and the fused step (the win scan still steps); move 1's
+    searched tree bitwise the option off's (`Smoke.move1_tree`), node
+    states included.  Then one searched move with `topk_impl="packedq"`:
+    its torch top-K on a dense mask, so the fused step steps the leaves
+    and neither the step with legal bits nor the legal top-K launches."""
     launches, tree_on, _ = selfplay_phase(
         ctx, "self-play with fused_leaf_legal", FUSED_MOVES,
         fused_leaf_legal=True)
-    if launches.get("fused_step_legal", 0) <= 0:
-        fail("fused_step_legal was not launched with fused_leaf_legal=True")
-    for name in POOL_TIER + ("fused_step",):
+    for name in POOL_TIER + ("fused_step",) + LEAF_KERNELS:
         if launches.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched with fused_leaf_legal=True")
     compare_trees(tree_on, ctx.move1_tree, "move 1's tree with "
@@ -4510,8 +4695,11 @@ def fused_leaf_legal_phase(ctx):
         "tree of the option off, node states included")
     ctx.launches["fused_leaf_legal"] = launches
     del tree_on
-    selfplay_phase(ctx, 'self-play with topk_impl="packedq"', 1,
-                   topk_impl="packedq")
+    launches, _, _ = selfplay_phase(ctx, 'self-play with topk_impl="packedq"',
+                                    1, topk_impl="packedq")
+    for name in LEAF_KERNELS:
+        if launches.get(name, 0) != 0:
+            fail(f'kernel {name} launched with topk_impl="packedq"')
 
 
 class Smoke:
@@ -4686,6 +4874,7 @@ PHASES = (
     ("6u", profiling_phase),
     ("6v", se8_phase),
     ("6w", dp4_phase),
+    ("6y", legal_topk_phase),
 )
 
 

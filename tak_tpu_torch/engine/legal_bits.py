@@ -5,7 +5,9 @@ Counterpart of `tak_tpu/engine/pallas_env.py` `_pattern_class_tables`,
 `_legal_bits`, `unpack_legal`, `masked_topk_packed` and
 `build_fused_step_legal` (:836).  The wrapper `step_legal` runs the CUDA
 kernel `csrc/fused_step_legal.cu` on CUDA tensors and its plain PyTorch
-version `step_legal_plain` on CPU tensors.
+version `step_legal_plain` on CPU tensors; the wrapper `legal_topk` runs
+`csrc/legal_topk.cu` (no TPU original) or its plain version
+`masked_topk_packed` the same way.
 
 The packed words of a batch of R positions:
 
@@ -40,7 +42,11 @@ from ..actions import pattern_mask_to_drops
 from ..kernels import build as kb
 from ..sizes import num_patterns
 from ..types import CAP, FIELDS, FLAT, WALL, GameState
+from ..utils.profiling import count
 from . import fused_env
+
+# the widest K the legal top-K kernel takes
+LEGAL_TOPK_MAX_K = 128
 
 
 def pattern_class_tables(n: int):
@@ -144,13 +150,16 @@ def unpack_legal(engine, place, spread):
 def masked_topk_packed(engine, policy, place, spread, k: int):
     """(vals, action_ids) of the top-k LEGAL policy entries per row, read
     from the packed words: `top_k(where(legal, policy, -1), k)` with ties to
-    the LOWER action id, as `jax.lax.top_k` and the reference's function of
-    the same name.  One int64 key per action (order-preserving float bits
-    above the reversed id, as `mcts.search.masked_topk` builds it) is made
-    from the policy alone; the words' bit tests then sink the illegal
-    actions' keys in place, so no [R, A] legal mask is assembled and the
-    top-K's indices are the action ids.  Pad slots (fewer than k legal
-    actions) return vals = -1; their ids never reach the tree."""
+    the LOWER action id, as `jax.lax.top_k` and `mcts.search.masked_topk`'s
+    "exact".  One int64 key per action (order-preserving float bits above
+    the reversed id, as `masked_topk` builds it) is made from the policy
+    alone; the words' bit tests then sink the illegal actions' keys below
+    every float's, keeping the reversed id, so no [R, A] legal mask is
+    assembled and the top-K's indices are the action ids.  Pad slots (fewer
+    than k legal actions) return vals = -1 and the lowest illegal ids in
+    ascending order: for a policy whose legal entries exceed -1 (a softmax)
+    every slot equals the exact version's.  The plain version of
+    `legal_topk`."""
     n2, P = engine.num_squares, engine.num_pat
     R, A = policy.shape
     if A >= 1 << 20:
@@ -158,15 +167,65 @@ def masked_topk_packed(engine, policy, place, spread, k: int):
     policy = policy.float()
     fbits = policy.contiguous().view(torch.int32)
     key = torch.where(fbits >= 0, fbits, fbits ^ 0x7FFFFFFF).long()
-    key = (key << 20) | ((1 << 20) - 1 - torch.arange(A, device=policy.device))
-    illegal = -(1 << 62)                    # below every key of a float
+    rev_idx = (1 << 20) - 1 - torch.arange(A, device=policy.device)
+    key = (key << 20) | rev_idx
+    sink = -(1 << 62) | rev_idx             # below every key of a float
     placement, spreads = _bit_tests(engine, place, spread)
-    key[:, :3 * n2].unflatten(1, (3, n2)).masked_fill_(~placement, illegal)
-    key[:, 3 * n2:].unflatten(1, (4, P, n2)).masked_fill_(~spreads, illegal)
+    kp = key[:, :3 * n2].unflatten(1, (3, n2))
+    kp.copy_(torch.where(placement, kp, sink[:3 * n2].view(3, n2)))
+    ks = key[:, 3 * n2:].unflatten(1, (4, P, n2))
+    ks.copy_(torch.where(spreads, ks, sink[3 * n2:].view(4, P, n2)))
     top, aidx = torch.topk(key, k, dim=-1)
-    vals = torch.where(top > illegal, policy.gather(-1, aidx),
+    vals = torch.where(top > -(1 << 62) | ((1 << 20) - 1),
+                       policy.gather(-1, aidx),
                        torch.full_like(top, -1.0, dtype=torch.float32))
     return vals, aidx.to(torch.int32)
+
+
+def legal_topk(engine, policy, place, spread, k: int):
+    """(policy [R, A], place [R, n2] int32, spread [R, 4, wp, n2] int32, k)
+    -> (vals [R, k] float32, action_ids [R, k] int32): the top-k legal
+    priors of each row from the packed words of `step_legal`, bitwise
+    `masked_topk(policy, legal_mask, k, "exact")` for a softmax policy.
+    CUDA tensors launch `csrc/legal_topk.cu` (sizes 3-8, 1 <= k <= 128)
+    and count the rows under `search.legal_topk_rows`; CPU tensors run
+    `masked_topk_packed`.  A policy that is not float32 is converted
+    first."""
+    if policy.device.type == "cpu":
+        return masked_topk_packed(engine, policy, place, spread, k)
+    n, n2, wp = engine.n, engine.num_squares, engine.pattern_words
+    R, A = policy.shape
+    if not 3 <= n <= 8:
+        raise ValueError(f"legal_topk supports sizes 3-8, not {n}")
+    if not 1 <= k <= min(LEGAL_TOPK_MAX_K, A):
+        raise ValueError(f"legal_topk takes 1 <= k <= "
+                         f"{min(LEGAL_TOPK_MAX_K, A)}, not {k}")
+    if A != engine.num_actions:
+        raise ValueError(f"policy has {A} actions, the {n}x{n} engine "
+                         f"{engine.num_actions}")
+    if (place.shape != (R, n2) or spread.shape != (R, 4, wp, n2)
+            or place.dtype != torch.int32 or spread.dtype != torch.int32
+            or place.device != policy.device
+            or spread.device != policy.device):
+        raise ValueError(
+            f"legal_topk: words place {tuple(place.shape)} {place.dtype} and "
+            f"spread {tuple(spread.shape)} {spread.dtype} on "
+            f"{place.device}/{spread.device} do not fit {R} rows of "
+            f"{n}x{n} on {policy.device}")
+    policy = policy.float().contiguous()
+    place, spread = place.contiguous(), spread.contiguous()
+    vals = torch.empty((R, k), dtype=torch.float32, device=policy.device)
+    ids = torch.empty((R, k), dtype=torch.int32, device=policy.device)
+    if R == 0:
+        return vals, ids
+    count("search.legal_topk_rows", R)
+    lib = kb.library("legal_topk")
+    err = lib.tak_legal_topk(n, R, A, k, kb.ptr(policy), kb.ptr(place),
+                             kb.ptr(spread), kb.ptr(vals), kb.ptr(ids),
+                             kb.stream_ptr(policy.device))
+    kb.check(err, "legal_topk")
+    kb.LAUNCHES["legal_topk"] += 1
+    return vals, ids
 
 
 def step_legal_plain(engine, state: GameState, action, enabled=None):
@@ -182,8 +241,8 @@ def step_legal(engine, state: GameState, action, enabled=None):
 
     The fused step plus the packed legal bits of the OUTPUT state, frozen
     rows and finished games included (callers gate terminal leaves).
-    Consume with `masked_topk_packed` or `unpack_legal`.  CUDA tensors
-    launch the kernel, CPU tensors run `step_legal_plain`."""
+    Consume with `legal_topk`, `masked_topk_packed` or `unpack_legal`.
+    CUDA tensors launch the kernel, CPU tensors run `step_legal_plain`."""
     if state.device.type == "cpu":
         return step_legal_plain(engine, state, action, enabled)
     if not 3 <= engine.n <= 8:

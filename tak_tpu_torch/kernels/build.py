@@ -36,7 +36,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "tak_tpu_torch"
 SOURCES = ("fused_step", "fused_step_legal", "env_rollout", "tree_wave",
-           "tree_wave_hbm", "batch_norm", "squeeze_excite")
+           "tree_wave_hbm", "batch_norm", "squeeze_excite", "legal_topk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -87,6 +87,9 @@ SIGNATURES = {
     # the SE epilogue: rows, H*W, C, S, SMs, y, x, w1, b1, w2, b2, out,
     # stream
     "tak_se_epilogue": ("squeeze_excite", [_L] + [_I] * 4 + [_P] * 8),
+    # the legal top-K: n, rows, A, K, policy, place, spread, vals, ids,
+    # stream
+    "tak_legal_topk": ("legal_topk", [_I] * 4 + [_P] * 6),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

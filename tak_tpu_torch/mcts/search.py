@@ -45,13 +45,18 @@ moves and top-K priors on the kernel tiers:
 
   * `fused_leaf_legal`: the leaf step is the fused step that also emits
     the packed legal bits (`engine/legal_bits.py` `step_legal`), and the
-    top-K reads the words (`masked_topk_packed`) instead of a dense legal
-    mask.  The trees are identical either way.  The reference takes this
-    path only when B*V is a multiple of 128, a TPU lane rule; the port's
-    kernel has no such rule and applies at any row count.  The "xla"
-    path ignores it, as the reference's does.
+    top-K reads the words (`legal_topk`; `masked_topk_packed` under a
+    packed `topk_impl`) instead of a dense legal mask.  The trees are
+    identical either way.  The reference takes this path only when B*V is
+    a multiple of 128, a TPU lane rule; the port's kernel has no such rule
+    and applies at any row count.  On a card with the exact top-K and
+    K <= 128 the leaves always take this path (the top-K is then the
+    kernel `csrc/legal_topk.cu`, which reads the words), so there the
+    option changes nothing; on the CPU it picks the words or the dense
+    mask.
+    The "xla" path ignores it, as the reference's does.
   * `topk_impl`: "exact", or the one-int32-key "packed" / "packedq" top-K
-    (`masked_topk`).
+    (`masked_topk`), which keep their torch ops on every device.
 """
 
 from __future__ import annotations
@@ -63,7 +68,11 @@ from functools import cached_property
 
 import torch
 
-from ..engine.legal_bits import masked_topk_packed
+from ..engine.legal_bits import (
+    LEGAL_TOPK_MAX_K,
+    legal_topk,
+    masked_topk_packed,
+)
 from ..parallel.mesh import gather_rows, shard_rows
 from ..types import ONGOING, GameState, result_winner
 from ..utils.profiling import count, span
@@ -106,6 +115,7 @@ class SearchConfig:
     topk_impl: str = "auto"
     # take the leaves' legal moves from the fused step as packed words and
     # run the top-K on the words, instead of a dense legal mask per wave
+    # (on a card with the exact top-K and K <= 128 they always are)
     fused_leaf_legal: bool = False
     # node recycling: a create in a full pool evicts the coldest unpinned
     # childless node instead of degrading to a parent re-eval
@@ -405,13 +415,22 @@ class MCTS:
         acts = torch.clamp(tree.parent_action[b, lv], min=0).reshape(-1)
         return parents, acts, (lv != 0).reshape(-1)
 
+    def _leaf_words(self, device) -> bool:
+        """Whether the leaf step emits the packed legal words: with
+        `fused_leaf_legal`, and on a card whenever the top-K is exact and
+        K is one the legal top-K kernel takes (it reads the words; a wider
+        K, which the tree kernels allow, keeps the dense mask)."""
+        return self.config.fused_leaf_legal or (
+            device.type == "cuda" and self.topk_impl == "exact"
+            and self.config.max_children <= LEGAL_TOPK_MAX_K)
+
     def _leaf_states_of(self, tree: Tree, leaves):
         """Every leaf's state with one fused step: step(state[parent],
         parent_action).  Returns (flat states [B*V], the leaves' packed
-        legal words (place, spread) with `fused_leaf_legal`, else None)."""
+        legal words (place, spread) where `_leaf_words`, else None)."""
         with span("search.leaf_step"):
             inputs = self._leaf_step_inputs(tree, leaves)
-            if self.config.fused_leaf_legal:
+            if self._leaf_words(leaves.device):
                 flat, place, spread = self.engine.step_legal(*inputs)
                 return flat, (place, spread)
             return self.engine.step(*inputs), None
@@ -442,7 +461,10 @@ class MCTS:
             policy, value = self.eval_fn(params, flat)
         leaf_results = flat.result.reshape(B, V)
         with span("search.legal_topk"):
-            if fused_legal is not None:
+            if (fused_legal is not None and self.topk_impl == "exact"
+                    and K <= LEGAL_TOPK_MAX_K):
+                vals, aidx = legal_topk(self.engine, policy, *fused_legal, K)
+            elif fused_legal is not None:
                 vals, aidx = masked_topk_packed(self.engine, policy,
                                                 *fused_legal, K)
             else:

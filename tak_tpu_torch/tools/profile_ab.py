@@ -11,7 +11,8 @@ Knobs (environment variables, the JAX script's names and defaults):
 BENCH_SIZE (6), BENCH_MCTS_BATCH (256), BENCH_MCTS_WAVE (16),
 BENCH_MCTS_K (64), BENCH_MCTS_SIMS (512), BENCH_AB_ROUNDS (3), BENCH_AB
 (the pair: `topk` (default), `topkq` or `fused-legal`; the last runs the
-fused step with legal bits).  `kind=` prints `MCTS.tier`.  Runs on the
+fused step with legal bits, which on a card the exact top-K takes with
+the option on or off).  `kind=` prints `MCTS.tier`.  Runs on the
 CUDA device unless `--cpu` is given.
 """
 

@@ -9,11 +9,13 @@ writes the tree (the JAX call in brackets):
   * descend: the tier's descent kernel (`mcts._descend`): #4
     `descend_wave` on the pool tier, #8 `descend_wave_hbm` on the
     large-tree tier;
-  * leaf env step: `MCTS._leaf_states_of`, the fused step #1;
+  * leaf env step: `MCTS._leaf_states_of`: the fused step #1, or on a
+    card with the exact top-K the step with legal bits #5;
   * observe (`Network.observe_batch`), nn forward (`Network.policy_eval`);
   * legal+topk: `Engine.legal_mask` + `masked_topk(..., "exact")`
     (`jax.lax.top_k`), then the production split: the legal mask alone and
-    `masked_topk(..., "packedq")` alone;
+    `masked_topk(..., "packedq")` alone (the search itself, on a card with
+    the exact top-K, runs the legal top-K kernel #12 on #5's words);
   * write+expand_backup: `MCTS._write_nodes` + the tier's expand+backup
     kernel (#3, or #9);
   * FULL WAVE: the same chain in one call (`mcts._wave`), then the sum of

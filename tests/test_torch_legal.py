@@ -9,6 +9,8 @@ state, bit words, bool masks, float priors that both sides only select
 and copy) unless a test states a tolerance.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +33,10 @@ from tak_tpu_torch.engine.legal_bits import (
     step_legal_plain,
     unpack_legal,
 )
+from tak_tpu_torch.mcts import search as search_mod
 from tak_tpu_torch.mcts.search import MCTS, SearchConfig, masked_topk
+from tak_tpu_torch.mcts.tree import TENSOR_FIELDS
+from tak_tpu_torch.types import GameState
 
 from tests.test_pallas_env78 import tall_stack_states
 from tests.test_torch_engine import (
@@ -153,8 +158,10 @@ def test_legal_bits_equal_dense_mask_along_playouts(n):
 
 def test_masked_topk_packed_ties():
     """A policy of a few distinct bf16 values: equal priors resolve to the
-    lower action id, as `jax.lax.top_k(where(legal, p, -1))` does."""
-    n, k = 5, 24
+    lower action id, as `jax.lax.top_k(where(legal, p, -1))` does, in every
+    slot: with K 128 (more than the legal actions) the pads hold -1 and the
+    lowest illegal ids, ascending, on both sides."""
+    n = 5
     je, te = JaxEngine(n), Engine(n)
     rng = np.random.default_rng(3)
     js = je.initial_batch(B, 3)
@@ -164,16 +171,119 @@ def test_masked_topk_packed_ties():
     legal = np.asarray(je.batched_legal_mask(js))
     levels = np.array([0.0, 0.00390625, 0.0078125, 0.25], np.float32)
     policy = levels[rng.integers(0, len(levels), legal.shape)]
-    rv, ri = jax.lax.top_k(jnp.where(legal, policy, -1.0), k)
     place, spread = legal_bits_plain(te, jax_to_torch(js))
-    for dtype in (torch.float32, torch.bfloat16):
-        gv, gi = masked_topk_packed(
-            te, torch.as_tensor(policy).to(dtype), place, spread, k)
-        np.testing.assert_array_equal(gv.numpy(), np.asarray(rv))
-        sel = np.asarray(rv) >= 0
-        assert sel.any() and (np.asarray(rv)[:, 1:] == np.asarray(rv)[:, :-1]
-                              ).any()
-        np.testing.assert_array_equal(gi.numpy()[sel], np.asarray(ri)[sel])
+    assert legal.sum(1).max() < 128
+    for k in (24, 128):
+        rv, ri = jax.lax.top_k(jnp.where(legal, policy, -1.0), k)
+        rv, ri = np.asarray(rv), np.asarray(ri)
+        assert (rv[:, 1:] == rv[:, :-1]).any()
+        assert (rv < 0).any() == (k == 128)
+        for dtype in (torch.float32, torch.bfloat16):
+            gv, gi = masked_topk_packed(
+                te, torch.as_tensor(policy).to(dtype), place, spread, k)
+            np.testing.assert_array_equal(gv.numpy(), rv)
+            np.testing.assert_array_equal(gi.numpy(), ri)
+
+
+@functools.lru_cache(maxsize=None)
+def topk_rows(n):
+    """(engine, states, dense legal mask) of 12 rows at size n: three
+    openings (fewer legal actions than K 128), the rest seeded random
+    playouts of 4 to 40 plies."""
+    te = Engine(n)
+    rng = np.random.default_rng(900 + n)
+    ts = te.initial_batch(12, 2, device="cpu")
+    stop = np.concatenate([[0, 0, 0], rng.integers(4, 41, 9)])
+    for ply in range(40):
+        mask = te.legal_mask(ts)
+        acts = torch.as_tensor(random_actions(rng, mask.numpy()))
+        ts = te.step(ts, acts, torch.as_tensor(stop > ply))
+    return te, ts, te.legal_mask(ts)
+
+
+@pytest.mark.parametrize("kind", ["softmax", "ties", "zeros"])
+@pytest.mark.parametrize("k", [16, 32, 128])
+@pytest.mark.parametrize("n", [6, 8])
+def test_masked_topk_packed_is_exact_in_every_slot(n, k, kind):
+    """`masked_topk_packed` (the legal top-K kernel's plain version) is
+    bitwise `masked_topk(policy, legal_mask, k, "exact")` in every slot,
+    pads included: softmax rows, rows of four tied levels (ties at the K
+    boundary), and rows whose legal priors are all 0.0, on openings and
+    played-out positions."""
+    te, ts, legal = topk_rows(n)
+    rng = np.random.default_rng([n, k])
+    A = te.num_actions
+    if kind == "softmax":
+        policy = torch.softmax(torch.as_tensor(
+            3.0 * rng.standard_normal((12, A)), dtype=torch.float32), -1)
+    elif kind == "ties":
+        levels = torch.tensor([0.0, 2.0 ** -12, 2.0 ** -8, 0.25])
+        policy = levels[torch.as_tensor(rng.integers(0, 4, (12, A)))]
+    else:
+        policy = torch.zeros((12, A))
+    place, spread = legal_bits_plain(te, ts)
+    gv, gi = masked_topk_packed(te, policy, place, spread, k)
+    wv, wi = masked_topk(policy, legal, k, "exact")
+    assert torch.equal(gi, wi)
+    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+    padded = bool((legal.sum(1) < k).any())
+    assert padded == (k == 128) and bool((gv < 0).any()) == padded
+    if kind != "softmax":
+        assert bool((gv[:, 1:] == gv[:, :-1]).any())
+
+
+def test_eval_and_topk_routing():
+    """The leaf step emits the words with `fused_leaf_legal`, and on a card
+    whenever the top-K is exact and K at most 128 (the legal top-K kernel
+    reads them); never for a packed top-K without the option.  On the CPU the default stays
+    the dense mask, and a pool-tier search's tree is the same, node states
+    included, when the words are forced (what the card runs: `legal_topk`,
+    here its plain version)."""
+    from tests.test_torch_search import exact_eval_pair, start_states
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    te = Engine(4)
+    for topk, fused, k, on_card, on_cpu in (
+            ("auto", False, 128, True, False),
+            ("exact", False, 32, True, False),
+            ("exact", False, 129, False, False),
+            ("packed", False, 32, False, False),
+            ("packedq", False, 32, False, False),
+            ("auto", True, 32, True, True),
+            ("packedq", True, 32, True, True)):
+        m = MCTS(te, None, SearchConfig(num_sims=8, topk_impl=topk,
+                                        max_children=k,
+                                        fused_leaf_legal=fused))
+        assert m._leaf_words(cuda) == on_card, (topk, fused, k)
+        assert m._leaf_words(cpu) == on_cpu, (topk, fused, k)
+
+    _, torch_eval = exact_eval_pair(te.num_actions)
+    cfg = SearchConfig(num_sims=48, wave_size=4, max_children=16,
+                       node_budget=24, recycle=True, backend="pallas")
+    states = GameState.from_numpy(start_states(4, ["a1", "d4", "b2"], 2))
+    calls = []
+    real = search_mod.legal_topk
+
+    def spy(*args):
+        calls.append(args[1].shape)
+        return real(*args)
+
+    trees = []
+    for forced in (False, True):
+        m = MCTS(te, torch_eval, cfg)
+        assert m.tier == "pool"
+        if forced:
+            m._leaf_words = lambda device: True
+        search_mod.legal_topk = spy
+        try:
+            tree = m.run_sims(None, m.prepare_root(None, m.init_batch(states)))
+        finally:
+            search_mod.legal_topk = real
+        assert bool(calls) == forced
+        trees.append(tree)
+    for f in TENSOR_FIELDS:
+        assert torch.equal(getattr(trees[0], f), getattr(trees[1], f)), f
+    assert_states_equal(trees[0].state, trees[1].state, "node states")
 
 
 def _distinct_policy(rng, rows, a, q_bits=17):
